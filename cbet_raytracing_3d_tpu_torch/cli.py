@@ -1,0 +1,119 @@
+"""Command-line interface of the PyTorch port.
+
+Counterpart of the ``run`` and ``dump`` subcommands of
+``cbet_raytracing_3d_tpu/cli.py``.  Every config field is a flag:
+
+* ``run``  — full simulation (the plain trace), outputs to ``--out-dir``
+* ``dump`` — reference-compatible -D PRINT text dump to stdout
+              (Makefile:14-17 golden-test replacement)
+
+Both run on the card when there is one (``--device`` overrides).
+
+Usage examples::
+
+    python -m cbet_raytracing_3d_tpu_torch.cli run --out-dir out \\
+        --formats npz,json
+    python -m cbet_raytracing_3d_tpu_torch.cli dump --nbeams 1 > edep.txt
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import typing
+
+from .config import Config
+from .runner import run, write_outputs
+from .utils.output import dump_print_format
+
+
+def _parse_bool(s: str) -> bool:
+    """Strict bool parse: an unrecognized value must ERROR, not silently
+    become False."""
+    v = s.lower()
+    if v in ("1", "true", "yes", "on"):
+        return True
+    if v in ("0", "false", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(
+        f"expected a boolean (true/false/1/0/yes/no/on/off), got {s!r}")
+
+
+def _parse_bool_or_none(s: str) -> bool | None:
+    """Tri-state for ``bool | None`` config fields: 'none'/'auto' keep
+    None, everything else parses strictly as a bool."""
+    if s.lower() in ("none", "auto"):
+        return None
+    return _parse_bool(s)
+
+
+def _add_config_flags(p: argparse.ArgumentParser) -> None:
+    hints = typing.get_type_hints(Config)
+    for f in dataclasses.fields(Config):
+        name = "--" + f.name.replace("_", "-")
+        hint = hints.get(f.name)
+        choices = (typing.get_args(hint)
+                   if typing.get_origin(hint) is typing.Literal else None)
+        if hint == typing.Optional[bool]:
+            p.add_argument(name, type=_parse_bool_or_none,
+                           default=f.default, metavar="BOOL|none")
+        elif isinstance(f.default, bool):
+            p.add_argument(name, type=_parse_bool,
+                           default=f.default, metavar="BOOL")
+        elif isinstance(f.default, int):
+            p.add_argument(name, type=int, default=f.default)
+        elif isinstance(f.default, float):
+            p.add_argument(name, type=float, default=f.default)
+        else:
+            # Literal-typed fields reject unknown values at parse time
+            p.add_argument(name, type=str, default=f.default,
+                           choices=choices)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda when available, "
+                        "else cpu)")
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    kw = {f.name: getattr(args, f.name) for f in dataclasses.fields(Config)}
+    return Config(**kw)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="cbet-torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p_run = sub.add_parser("run", help="full simulation")
+    _add_config_flags(p_run)
+    p_run.add_argument("--out-dir", default="out")
+    p_run.add_argument("--formats", default="npz,json",
+                       help="comma list: npz,hdf5,txt,json")
+    p_run.add_argument("--quiet", action="store_true")
+
+    p_dump = sub.add_parser("dump", help="-D PRINT compatible dump to stdout")
+    _add_config_flags(p_dump)
+
+    args = parser.parse_args(argv)
+    cfg = config_from_args(args)
+
+    if args.cmd == "run":
+        res = run(cfg, device=args.device, verbose=not args.quiet)
+        paths = write_outputs(res, args.out_dir,
+                              tuple(args.formats.split(",")))
+        if not args.quiet:
+            print(json.dumps(res.stats, indent=2))
+            for p in paths:
+                print(f"wrote {p}", file=sys.stderr)
+        return 0
+
+    if args.cmd == "dump":
+        res = run(cfg, device=args.device, verbose=False)
+        sys.stdout.write(dump_print_format(res.edep))
+        return 0
+
+    return 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

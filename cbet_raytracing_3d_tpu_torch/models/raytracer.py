@@ -1,0 +1,430 @@
+"""The ray-trace integrator in PyTorch.
+
+Counterpart of ``cbet_raytracing_3d_tpu/models/raytracer.py``: the reference's
+one-CUDA-thread-per-ray time loop (``launch_ray_XZ.cu:117-359``) as batched
+tensor steps over all rays of all beams:
+
+* rays form one flat batch axis ordered by *launch tile* (a patch of adjacent
+  launch-lattice sites), so consecutive rays stay spatially coherent through
+  the trace — neighbouring deposit threads then hit nearby grid nodes,
+* the per-step radial interpolations are one row gather from the
+  precomputed ``(P, 4)`` node-field table (``fields.py``; the gradient kick
+  is carried one step in the ray state),
+* deposition is the CUDA kernel on the card and its plain ``index_add_``
+  version on the CPU (``ops/deposit.py``), once per step,
+* early ray termination (the CUDA ``break``, launch_ray_XZ.cu:351-356) is an
+  ``alive`` mask with frozen state, and the trace stops at the first chunk
+  boundary where no ray is alive.
+
+Every per-ray tensor is 1-D (structure of arrays).  Positions are carried
+cell-relative (``cell + frac``), so float32 rounding stays at the scale of
+one cell; per-step deposits accumulate into a grid of the ray dtype for
+``chunk_steps`` steps, then promote into a float64 master grid.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from .. import constants as k
+from ..beams import init_rays, load_beam_norms, power_table
+from ..config import Config
+from ..fields import Fields, build_fields
+from ..ops.deposit import deposit, deposit_reference
+from ..profiles import RadialProfiles, load_profiles
+
+DEPOSIT_BACKENDS = ("auto", "cuda", "torch")
+
+
+@dataclasses.dataclass
+class RayState:
+    """Per-ray integrator state: tuples of per-axis 1-D tensors, shape (N,).
+
+    Positions are stored cell-relative (``cell`` + ``frac``) so float32
+    rounding stays at the scale of one cell rather than of the whole grid."""
+
+    frac: tuple     # (fx, fy, fz) position relative to the cell node, grid units
+    vel: tuple      # (vx, vy, vz) displacement per step, grid units
+    kick: tuple     # (kx, ky, kz) gradient kick at the current cell — carried
+                    # from the previous step's single row gather (see step fn)
+    uray: torch.Tensor       # (N,) ray energy
+    uray_init: torch.Tensor  # (N,) launch energy (for the 5% stop rule)
+    cell: tuple     # (cx, cy, cz) int32 current cell
+    alive: torch.Tensor      # (N,) bool — still stepping
+
+    @property
+    def n(self) -> int:
+        return self.uray.shape[0]
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "RayState":
+        """Apply ``fn`` to every tensor of the state."""
+        return RayState(
+            frac=tuple(fn(a) for a in self.frac),
+            vel=tuple(fn(a) for a in self.vel),
+            kick=tuple(fn(a) for a in self.kick),
+            uray=fn(self.uray), uray_init=fn(self.uray_init),
+            cell=tuple(fn(a) for a in self.cell), alive=fn(self.alive))
+
+    def to(self, device) -> "RayState":
+        return self.map(lambda a: a.to(device))
+
+
+def initial_cell(cfg: Config, t: np.ndarray) -> np.ndarray:
+    """Closed form of the reference's linear first-match cell scan
+    (launch_ray_XZ.cu:162-183): the smallest node index within
+    ``0.5001`` cells of the position; 0 if none matches."""
+    nvec = (cfg.nx, cfg.ny, cfg.nz)
+    tol = cfg.cell_tol
+    out = np.zeros(t.shape, np.int32)
+    for ax in range(t.shape[1]):
+        ta = np.ascontiguousarray(t[:, ax])
+        # first integer in [ta - tol, ta + tol] is ceil(ta - tol); the +1
+        # candidate covers float rounding where ceil lands one below
+        c0 = np.ceil(ta - tol).astype(np.int32)
+        oa = out[:, ax]
+        for cand in (c0 + 1, c0):       # later write (c0) wins: first match
+            ok = (cand >= 0) & (cand <= nvec[ax] - 1)
+            ok &= np.abs(cand - ta) <= tol
+            np.copyto(oa, cand, where=ok)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class TileLayout:
+    """Tile-major ray ordering.
+
+    ``slot_of[beam, pre_raynum]`` maps a reference thread id to its slot in
+    the flat ray axis; slots not covered by any ray are permanent dead
+    padding."""
+
+    rays_per_tile: int
+    tiles_per_beam: int
+    n_slots: int
+    slot_of: np.ndarray       # (nbeams, nrays) int64
+
+
+def build_tile_layout(cfg: Config) -> TileLayout:
+    """The JAX package's layout, including its per-beam tile count padded to
+    a ``tiles_per_block`` multiple, so slots match one for one (the padding
+    tiles are dead and never traced: see ``live_slots``)."""
+    rpz = cfg.rays_per_zone
+    zones = cfg.zones_spanned
+    tz = cfg.tile_zones
+    side = tz * rpz                       # rays per tile edge (16)
+    rays_per_tile = side * side           # 256
+    ntiles_axis = -(-zones // tz)         # ceil
+    tpb = ntiles_axis * ntiles_axis
+    tiles_per_beam = -(-tpb // cfg.tiles_per_block) * cfg.tiles_per_block
+
+    kk = np.arange(cfg.nrays, dtype=np.int64)
+    b1, b2 = kk // (rpz * rpz), kk % (rpz * rpz)
+    zy, zx = b1 // zones, b1 % zones
+    ry2, rx2 = b2 // rpz, b2 % rpz
+    tx, ty = zx // tz, zy // tz
+    lx = (zx % tz) * rpz + rx2
+    ly = (zy % tz) * rpz + ry2
+    tile = ty * ntiles_axis + tx
+    slot_in_beam = tile * rays_per_tile + ly * side + lx
+    slot_of = (np.arange(cfg.nbeams, dtype=np.int64)[:, None]
+               * tiles_per_beam * rays_per_tile + slot_in_beam[None, :])
+    n_slots = cfg.nbeams * tiles_per_beam * rays_per_tile
+    return TileLayout(rays_per_tile=rays_per_tile, tiles_per_beam=tiles_per_beam,
+                      n_slots=n_slots, slot_of=slot_of)
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceContext:
+    """Everything needed to run a trace: static config + host tensors.
+
+    ``field4`` and ``state0`` are CPU tensors; a run uploads them once
+    (``RayState.to``, ``Tensor.to``)."""
+
+    cfg: Config
+    prof: RadialProfiles
+    beam_norm: np.ndarray        # (nbeams, 3) float64
+    fields: Fields               # float64 node fields
+    rays: Any                    # beams.RayInit: float64 launch state
+    layout: TileLayout
+    field4: torch.Tensor         # (P, 4) rows [kick_x, kick_y, kick_z, absorb]
+    state0: RayState             # tile-ordered (n_slots,) initial state
+    beam_id: np.ndarray          # (n_slots,) int32 beam of each slot (-1 padding)
+    live_slots: np.ndarray       # slots of tiles with >=1 launched ray;
+                                 # the other tiles never contribute
+
+
+def _live_slots_of(mask_slots: np.ndarray, rpt: int) -> np.ndarray:
+    tile_live = mask_slots.reshape(-1, rpt).any(axis=1)
+    return (np.nonzero(tile_live)[0][:, None] * rpt
+            + np.arange(rpt)[None, :]).reshape(-1)
+
+
+def prepare(cfg: Config, prof: RadialProfiles | None = None,
+            beam_norm: np.ndarray | None = None) -> TraceContext:
+    """Host-side setup ("Init" phase): profiles, fields, rays, initial state,
+    in float64 NumPy, cast once to the config's dtype.  The JAX package's
+    ``prepare(host_state=True)`` without its disk cache."""
+    if prof is None:
+        prof = load_profiles(nr=cfg.nr)
+    if beam_norm is None:
+        beam_norm = load_beam_norms(nbeams=cfg.nbeams)
+
+    fields = build_fields(cfg, prof)
+    pow_r = power_table(cfg)
+    rays = init_rays(cfg, beam_norm, pow_r)
+    layout = build_tile_layout(cfg)
+
+    np_dtype = np.dtype(cfg.dtype)
+    d = np.array([cfg.dx, cfg.dy, cfg.dz])
+    origin = np.array([cfg.xmin, cfg.ymin, cfg.zmin])
+
+    # hot fields interleaved as (P, 4) rows [kick_x, kick_y, kick_z, absorb]
+    # so the per-step lookup is one row gather
+    kick = fields.fgrad * cfg.dt / d          # (nx,ny,nz,3) grid units/step
+    f4 = np.concatenate([kick.reshape(-1, 3),
+                         fields.absorb.reshape(-1, 1)], axis=1)
+
+    # --- initial ray state (float64 on host, cast once) ---
+    pos = rays.pos.reshape(-1, 3)                     # (nbeams*nrays, 3) cm
+    t0 = (pos - origin) / d                           # grid units
+    cell0 = initial_cell(cfg, t0)
+
+    # dispersion relation at the launch cell node (launch_ray_XZ.cu:186-204)
+    flat0 = (cell0[:, 0] * cfg.ny + cell0[:, 1]) * cfg.nz + cell0[:, 2]
+    wsq = fields.wsq_term.reshape(-1)[flat0]
+    w = np.sqrt(np.maximum(k.OMEGA ** 2 - wsq, 0.0)) / k.C_CMS
+    bn = beam_norm / np.linalg.norm(beam_norm, axis=1, keepdims=True)
+    ray_beam = np.repeat(np.arange(cfg.nbeams, dtype=np.int32), cfg.nrays)
+    v = -(k.C_CMS ** 2) * bn[ray_beam] * (w / k.OMEGA)[:, None]  # cm/s
+    vel0 = v * cfg.dt / d                                        # grid units/step
+
+    # scatter ray data into tile-ordered slots; uncovered slots stay dead
+    slots = layout.slot_of.reshape(-1)
+    ns = layout.n_slots
+    frac0 = t0 - cell0
+    kick0 = f4[flat0, :3]        # gradient kick at the launch cell (step 0)
+    fmat = np.zeros((11, ns), np_dtype)
+    fmat[10] = 1.0     # padding slots: uray_init=1 keeps the 5% rule defined
+    for i in range(3):
+        fmat[i, slots] = np.ascontiguousarray(frac0[:, i]).astype(np_dtype)
+        fmat[3 + i, slots] = np.ascontiguousarray(vel0[:, i]).astype(np_dtype)
+        fmat[6 + i, slots] = np.ascontiguousarray(kick0[:, i]).astype(np_dtype)
+    fmat[9, slots] = rays.uray.reshape(-1).astype(np_dtype)
+    fmat[10, slots] = fmat[9, slots]
+    imat = np.zeros((3, ns), np.int32)
+    for i in range(3):
+        imat[i, slots] = cell0[:, i]
+    mask_slots = np.zeros((ns,), bool)
+    mask_slots[slots] = rays.mask.reshape(-1)
+    beam_id = np.full((ns,), -1, np.int32)
+    beam_id[slots] = ray_beam
+
+    f = [torch.from_numpy(fmat[i]) for i in range(11)]
+    c = [torch.from_numpy(imat[i]) for i in range(3)]
+    state0 = RayState(frac=(f[0], f[1], f[2]), vel=(f[3], f[4], f[5]),
+                      kick=(f[6], f[7], f[8]), uray=f[9], uray_init=f[10],
+                      cell=(c[0], c[1], c[2]),
+                      alive=torch.from_numpy(mask_slots))
+    return TraceContext(
+        cfg=cfg, prof=prof, beam_norm=beam_norm, fields=fields, rays=rays,
+        layout=layout, field4=torch.from_numpy(f4.astype(np_dtype)),
+        state0=state0, beam_id=beam_id,
+        live_slots=_live_slots_of(mask_slots, layout.rays_per_tile))
+
+
+def select_rays(state: RayState, indices) -> RayState:
+    """Subset the ray batch by slot indices (on the state's device)."""
+    idx = torch.as_tensor(np.asarray(indices, np.int64),
+                          device=state.uray.device)
+    return state.map(lambda a: a.index_select(0, idx))
+
+
+def _reindex_axis(cell, frac, n: int, tol: float):
+    """Countdown cell re-index (launch_ray_XZ.cu:282-292): of the candidates
+    {cell-1, cell, cell+1} clipped to [0, n-1], the *smallest* within ``tol``
+    of the position wins (the countdown loop's last write); else unchanged.
+
+    Cell-relative: candidate offset d matches iff ``|d - frac| < tol``.
+    Returns the chosen offset; no-match coincides with offset 0."""
+    dsel = torch.zeros_like(cell)
+    for dlt in (1, 0, -1):
+        ok = (dlt - frac).abs() < tol
+        if dlt == 1:
+            ok &= cell + 1 <= n - 1
+        elif dlt == -1:
+            ok &= cell - 1 >= 0
+        dsel = torch.where(ok, dlt, dsel)
+    return dsel
+
+
+def make_deferred_step_fn(cfg: Config):
+    """The step physics (one iteration of the reference time loop,
+    launch_ray_XZ.cu:207-357, over the whole ray batch): advances the state
+    and returns the deposit inputs (cell, frac, masked increment).  The
+    gradient kick at the current cell was gathered by the previous step;
+    the one gather per step fetches kick-for-next-step + absorption at the
+    new cell in one (N, 4) row."""
+    nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
+    tol = cfg.cell_tol
+    stop_frac = cfg.stop_fraction
+    absorption = cfg.absorption
+    nvec = (nx, ny, nz)
+
+    def step(state: RayState, field4: torch.Tensor):
+        vel = tuple(state.vel[ax] - state.kick[ax] for ax in range(3))
+        frac = tuple(state.frac[ax] + vel[ax] for ax in range(3))
+        dsel = tuple(_reindex_axis(state.cell[ax], frac[ax], nvec[ax], tol)
+                     for ax in range(3))
+        cell = tuple(state.cell[ax] + dsel[ax] for ax in range(3))
+        frac = tuple(frac[ax] - dsel[ax].to(frac[ax].dtype) for ax in range(3))
+        flat2 = ((cell[0].to(torch.int64) * ny + cell[1]) * nz + cell[2])
+        rows = field4.index_select(0, flat2)
+        kick = tuple(rows[:, ax] for ax in range(3))
+        if absorption:
+            increment = rows[:, 3] * state.uray
+            uray = state.uray - increment
+        else:
+            increment = state.uray
+            uray = state.uray
+        # the OLD alive: a ray deposits on the step it dies
+        inc_masked = torch.where(state.alive, increment, 0.0)
+        out = torch.zeros_like(state.alive)
+        for ax in range(3):
+            t = cell[ax].to(frac[ax].dtype) + frac[ax]
+            out |= (t < -0.5) | (t > nvec[ax] - 0.5)
+        dead = (uray <= stop_frac * state.uray_init) | out
+        alive = state.alive & ~dead
+        keep = state.alive          # a dead ray's whole state is frozen
+        new_state = RayState(
+            frac=tuple(torch.where(keep, frac[ax], state.frac[ax]) for ax in range(3)),
+            vel=tuple(torch.where(keep, vel[ax], state.vel[ax]) for ax in range(3)),
+            kick=tuple(torch.where(keep, kick[ax], state.kick[ax]) for ax in range(3)),
+            uray=torch.where(keep, uray, state.uray),
+            uray_init=state.uray_init,
+            cell=tuple(torch.where(keep, cell[ax], state.cell[ax]) for ax in range(3)),
+            alive=alive,
+        )
+        return new_state, (cell, frac, inc_masked)
+
+    return step
+
+
+def resolve_deposit_fn(cfg: Config, device) -> Callable:
+    """The deposit function for ``cfg.deposit_backend`` on ``device``:
+    "auto" is the wrapper (the kernel for CUDA tensors, the plain version
+    for CPU tensors); "cuda" is the kernel and raises off the card; "torch"
+    is the plain version, for CPU tensors only.  No choice falls back."""
+    device = torch.device(device)
+    backend = cfg.deposit_backend
+    if backend not in DEPOSIT_BACKENDS:
+        raise ValueError(f"unknown deposit_backend {backend!r} "
+                         f"(expected one of {DEPOSIT_BACKENDS})")
+    if backend == "cuda" and device.type != "cuda":
+        raise RuntimeError("deposit_backend='cuda' needs tensors on a CUDA "
+                           f"device, got {device}")
+    if backend == "torch":
+        if device.type != "cpu":
+            raise RuntimeError("deposit_backend='torch' runs on the CPU only; "
+                               "on the card the deposit is the CUDA kernel")
+        return deposit_reference
+    return deposit
+
+
+def make_trace_fn(cfg: Config, deposit_fn: Callable | None = None):
+    """Build the full-trace function
+    ``(field4, state0) -> (edep, final_state, overflow, steps)``.
+
+    Runs ``nt`` steps in chunks of ``chunk_steps``; each chunk deposits into
+    a grid of the ray dtype and promotes it into an ``edep_dtype`` master
+    between chunks.  The trace stops at the first chunk boundary where no
+    ray is alive (the CUDA ``break`` at chunk granularity; one device sync
+    per chunk).  ``overflow`` is the 0-dim int32 count of deposits outside
+    the grid (0 in any valid configuration); ``steps`` the number of steps
+    executed, i.e. of deposit calls.
+
+    ``deposit_fn`` overrides the config's deposit (used to time or compare
+    the kernel against its plain version); by default it is resolved from
+    ``cfg.deposit_backend`` and the device of ``state0``."""
+    step = make_deferred_step_fn(cfg)
+    shape3 = cfg.edep_shape
+    chunk = max(1, min(cfg.chunk_steps, cfg.nt))
+    n_chunks = -(-cfg.nt // chunk)          # ceil
+    master_dtype = getattr(torch, cfg.edep_dtype)
+
+    def trace(field4: torch.Tensor, state0: RayState):
+        device = state0.uray.device
+        dep = deposit_fn or resolve_deposit_fn(cfg, device)
+        compute_dtype = state0.uray.dtype
+        master = torch.zeros(shape3, dtype=master_dtype, device=device)
+        oflow = torch.zeros((), dtype=torch.int32, device=device)
+        state, steps = state0, 0
+        for ci in range(n_chunks):
+            if not bool(state.alive.any()):
+                break
+            n_steps = min(chunk, cfg.nt - ci * chunk)
+            edep = torch.zeros(shape3, dtype=compute_dtype, device=device)
+            for _ in range(n_steps):
+                state, (cell, frac, inc) = step(state, field4)
+                edep, of = dep(edep, *cell, *frac, inc)
+                oflow += of
+            steps += n_steps
+            master += edep.to(master_dtype)
+        return master, state, oflow, steps
+
+    return trace
+
+
+def trace(ctx: TraceContext, device=None):
+    """Convenience full trace of the live tiles on ``device`` (default: the
+    CPU).  Returns (edep [np.f64 padded], final RayState over live slots)."""
+    from ..parallel.sharding import pad_rays
+    device = torch.device(device or "cpu")
+    state0 = pad_rays(select_rays(ctx.state0, ctx.live_slots),
+                      ctx.layout.rays_per_tile).to(device)
+    edep, state, oflow, _ = make_trace_fn(ctx.cfg)(
+        ctx.field4.to(device), state0)
+    check_overflow(int(oflow), ctx.cfg)
+    return edep.to("cpu", torch.float64).numpy(), state
+
+
+def check_overflow(oflow: int, cfg: Config) -> None:
+    """Raise on deposits outside the grid — silent data loss must never
+    pass.  A RuntimeError (not ``assert``) so the guard survives
+    ``python -O``."""
+    if oflow:
+        raise RuntimeError(
+            f"deposit overflow: {oflow} live rows had a corner outside the "
+            f"{cfg.edep_shape} grid and were not deposited")
+
+
+def trace_stats(ctx: TraceContext, state: RayState,
+                state0: RayState | None = None) -> dict[str, Any]:
+    """Run metrics the reference lacks (SURVEY.md §5.5): launch/termination
+    accounting and energy bookkeeping.
+
+    ``state0`` is the initial state actually traced (it may be a live-tile
+    subset of ``ctx.state0``, possibly padded); defaults to ``ctx.state0``.
+    The two states must have the same slot count."""
+    if state0 is None:
+        state0 = ctx.state0
+    if state0.n != state.n:
+        raise ValueError(
+            f"final state has {state.n} slots but state0 has {state0.n}: "
+            "slot-for-slot accounting needs the same layout")
+    launched_mask = state0.alive.cpu().numpy()
+    launched = int(launched_mask.sum())
+    alive_end = int(state.alive.sum())
+    uray = state.uray.to("cpu", torch.float64).numpy()
+    uinit = state.uray_init.to("cpu", torch.float64).numpy()
+    absorbed = float(np.sum((uinit - uray)[launched_mask]))
+    return {
+        "rays_total": int(ctx.cfg.total_rays),
+        "rays_launched": launched,
+        "rays_alive_at_end": alive_end,
+        "rays_terminated": launched - alive_end,
+        "energy_launched": float(np.sum(uinit[launched_mask])),
+        "energy_absorbed": absorbed,
+    }

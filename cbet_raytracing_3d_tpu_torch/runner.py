@@ -1,0 +1,137 @@
+"""End-to-end run orchestrator, mirroring the reference driver
+(``rayTracing()``, main.cu:96-232): Init (profiles, fields, ray setup, device
+upload) -> Tracing (device compute) -> Combining (grid download), with the
+reference's phase-timing report, plus run metrics and output writing.
+
+Counterpart of ``cbet_raytracing_3d_tpu/runner.py::run`` and
+``write_outputs`` for the plain trace on one device: no CBET stage, no
+mesh, no tile plan.  The trace runs over the live tiles, unsegmented.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import sys
+from typing import Any
+
+import numpy as np
+import torch
+
+from .config import Config
+from .models import raytracer as rt
+from .parallel.sharding import pad_rays
+from .utils.output import HAVE_H5PY, save_hdf5, save_npz
+from .utils.timers import PhaseTimers
+
+
+@dataclasses.dataclass
+class RunResult:
+    cfg: Config
+    edep: np.ndarray             # ghost-padded (nx+2, ny+2, nz+2) float64
+    stats: dict[str, Any]
+    timings: dict[str, float]
+
+
+def default_device() -> torch.device:
+    """The card when there is one, else the CPU."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def estimate_device_bytes(cfg: Config) -> int:
+    """Device memory a run needs: the counterpart of the JAX package's
+    ``estimate_hbm_bytes`` for the port's layout.
+
+    * the traced ray state (11 float + 3 int32 + 1 bool per slot) and the
+      step's temporaries (about three more states' worth),
+    * the (P, 4) field table,
+    * the grids: the ``edep_dtype`` master and the chunk grid."""
+    layout = rt.build_tile_layout(cfg)
+    n = layout.n_slots
+    fbytes = 4 if cfg.dtype == "float32" else 8
+    state_bytes = 11 * fbytes + 3 * 4 + 1
+    P = cfg.nx * cfg.ny * cfg.nz
+    nxp, nyp, nzp = cfg.edep_shape
+    master_bytes = 8 if cfg.edep_dtype == "float64" else 4
+    grids = nxp * nyp * nzp * (master_bytes + fbytes)
+    return 4 * n * state_bytes + P * 4 * fbytes + grids
+
+
+def check_memory(cfg: Config, device) -> None:
+    """Fail fast with a clear message when the run cannot fit on the card
+    (``torch.cuda.mem_get_info``) — unlike the reference, which logs
+    allocation errors and continues (SURVEY.md §5.3).  No-op on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    need = estimate_device_bytes(cfg)
+    free, total = torch.cuda.mem_get_info(device)
+    if need > 0.95 * free:
+        raise RuntimeError(
+            f"estimated device memory demand {need / 2**30:.1f} GiB exceeds "
+            f"the free {free / 2**30:.1f} GiB of {total / 2**30:.1f} GiB on "
+            f"{device} — reduce grid or ray counts")
+
+
+def run(cfg: Config, *, device=None, verbose: bool = True) -> RunResult:
+    """Full simulation run with reference-parity phase accounting, on
+    ``device`` (default: the card when there is one, else the CPU)."""
+    device = torch.device(device) if device is not None else default_device()
+    check_memory(cfg, device)
+    timers = PhaseTimers(device)
+
+    with timers.phase("Init"):
+        # host prepare in float64 NumPy, then one upload of the live-tile
+        # state and the field table
+        ctx = rt.prepare(cfg)
+        state0 = pad_rays(rt.select_rays(ctx.state0, ctx.live_slots),
+                          ctx.layout.rays_per_tile).to(device)
+        field4 = ctx.field4.to(device)
+        fn = rt.make_trace_fn(cfg)
+
+    with timers.phase("Tracing"):
+        edep_dev, state, oflow, steps = fn(field4, state0)
+    with timers.phase("Combining"):
+        edep = edep_dev.to("cpu", torch.float64).numpy()
+        oflow = int(oflow)
+
+    rt.check_overflow(oflow, cfg)
+
+    stats = rt.trace_stats(ctx, state, state0)
+    stats["edep_total"] = float(edep.sum())
+    stats["devices"] = 1
+    stats["steps_executed"] = steps
+
+    timings = timers.as_dict()
+    if verbose:
+        print(timers.report(), file=sys.stderr)
+    return RunResult(cfg=cfg, edep=edep, stats=stats, timings=timings)
+
+
+def write_outputs(res: RunResult, outdir: str, formats: tuple[str, ...] = ("npz",),
+                  basename: str = "edep") -> list[str]:
+    """Persist a run in the given formats (npz, hdf5, txt, json)."""
+    os.makedirs(outdir, exist_ok=True)
+    written = []
+    for fmt in formats:
+        path = os.path.join(outdir, f"{basename}.{fmt}")
+        if fmt == "npz":
+            save_npz(path, res.cfg, res.edep, res.stats)
+        elif fmt == "hdf5":
+            if not HAVE_H5PY:
+                print("warning: h5py unavailable, skipping hdf5 output",
+                      file=sys.stderr)
+                continue
+            save_hdf5(path, res.cfg, res.edep)
+        elif fmt == "txt":
+            from .utils.native import write_print_dump
+            write_print_dump(path, res.edep)
+        elif fmt == "json":
+            with open(path, "w") as f:
+                json.dump({"stats": res.stats, "timings": res.timings}, f,
+                          indent=2)
+        else:
+            raise ValueError(f"unknown output format: {fmt}")
+        written.append(path)
+    return written
