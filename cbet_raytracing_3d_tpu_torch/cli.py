@@ -3,7 +3,8 @@
 Counterpart of the ``run`` and ``dump`` subcommands of
 ``cbet_raytracing_3d_tpu/cli.py``.  Every config field is a flag:
 
-* ``run``  — full simulation (the plain trace), outputs to ``--out-dir``
+* ``run``  — full simulation (the plain trace; with ``--cbet`` also the CBET
+              fixed-point solve), outputs to ``--out-dir``
 * ``dump`` — reference-compatible -D PRINT text dump to stdout
               (Makefile:14-17 golden-test replacement)
 
@@ -13,6 +14,7 @@ Usage examples::
 
     python -m cbet_raytracing_3d_tpu_torch.cli run --out-dir out \\
         --formats npz,json
+    python -m cbet_raytracing_3d_tpu_torch.cli run --cbet --out-dir out
     python -m cbet_raytracing_3d_tpu_torch.cli dump --nbeams 1 > edep.txt
 """
 
@@ -89,6 +91,8 @@ def main(argv=None) -> int:
     p_run.add_argument("--out-dir", default="out")
     p_run.add_argument("--formats", default="npz,json",
                        help="comma list: npz,hdf5,txt,json")
+    p_run.add_argument("--cbet", action="store_true",
+                       help="also run the CBET fixed-point solve")
     p_run.add_argument("--quiet", action="store_true")
 
     p_dump = sub.add_parser("dump", help="-D PRINT compatible dump to stdout")
@@ -98,11 +102,17 @@ def main(argv=None) -> int:
     cfg = config_from_args(args)
 
     if args.cmd == "run":
-        res = run(cfg, device=args.device, verbose=not args.quiet)
+        res = run(cfg, with_cbet=args.cbet, device=args.device,
+                  verbose=not args.quiet)
         paths = write_outputs(res, args.out_dir,
                               tuple(args.formats.split(",")))
         if not args.quiet:
             print(json.dumps(res.stats, indent=2))
+            if res.cbet is not None:
+                print(f"cbet: {res.cbet.iterations} iterations, converged="
+                      f"{res.cbet.converged}, history "
+                      f"{[round(h, 5) for h in res.cbet.history]}",
+                      file=sys.stderr)
             for p in paths:
                 print(f"wrote {p}", file=sys.stderr)
         return 0

@@ -13,8 +13,8 @@ Two behavioral modes:
   blocks, dropping ``nrays % 256`` (=144) rays per beam
   (``main.cu:161``, ``def.cuh:127-129``).
 
-Fields of stages the port does not run yet (CBET) and knobs of the TPU
-kernels are kept so configs round-trip; the port does not read them.
+Knobs of the TPU kernels and of paths the port does not run yet are kept so
+configs round-trip; the port does not read them (each says why).
 """
 
 from __future__ import annotations
@@ -68,20 +68,29 @@ class Config:
     pow_table_len: int = 2001
     pow_table_max: float = 0.1
 
-    # --- CBET stage (def.cuh:94-114): not run by the port yet, not read ---
+    # --- CBET stage (def.cuh:94-114; models/cbet.py) ---
     cbet_max_iters: int = 30
     cbet_tol: float = 5e-3
     cbet_relax: float = 0.9
+    # "anderson" is an opt-in of ROADMAP M8: check_cbet_config refuses it
     cbet_accel: Literal["none", "anderson"] = "none"
     machnum: float = k.MACH           # flow Mach number (def.cuh:99)
     ncrossings_mult: int = 3          # ncrossings = mult*nx (def.cuh:96)
+    # > 1 (the window-strided lookup, another model) is refused
     cbet_gain_stride: int = 1
+    # "lookup" and "kernel_cell" (the same model); "kernel" (the trilinear
+    # window model, an M8 opt-in) is refused
     cbet_gain_mode: Literal["lookup", "kernel", "kernel_cell"] = "lookup"
+    # not read: TPU gather-layout choices of the lookup with identical
+    # values (per-beam row slices, value-duplicated 2-wide rows)
     cbet_gain_sliced: bool = True
     cbet_gain_rows2: bool | None = None
+    # not read: the mesh's beam-sharded gain table (ROADMAP M11)
     cbet_gain_sharded: bool | None = None
+    # True (an M8 opt-in) is refused
     cbet_light_iterations: bool | None = None
     cbet_seed_zero_gain: bool = True
+    # not read: segment compaction does not change values (ROADMAP M9)
     cbet_segmented: bool = False
     cbet_plan_headroom: float = 0.0
     cbet_grid_downsample: int = 1
@@ -100,9 +109,13 @@ class Config:
     # tile so neighbouring deposit threads hit nearby grid nodes
     tile_zones: int = 4
     # Knobs of the TPU deposit kernel (box edges, boundary mode, tiles per
-    # grid step, steps per kernel call).  Kept so configs round-trip; the
-    # port does not read them: its kernel accumulates with atomics in the
-    # whole grid, deposits every step, and is exact on boundary exit rows.
+    # grid step).  Kept so configs round-trip; the port does not read them:
+    # its kernels accumulate with atomics in the whole grid and are exact on
+    # boundary exit rows.  tiles_per_block is read only as the padding of
+    # the slot layouts (build_tile_layout, models/cbet.live_tile_slots), so
+    # slots match the JAX package's one for one; deposit_batch_steps
+    # is the window of cbet_gain_mode="kernel_cell" (the plain trace
+    # deposits every step).
     deposit_box_x: int = 32
     deposit_box_y: int = 32
     deposit_box_z: int = 32

@@ -3,7 +3,8 @@
 The two packages share no import: the port never imports jax.  A caller that
 holds the JAX package's ``TraceContext`` contents as NumPy arrays (e.g.
 ``np.asarray`` of each array) hands them here and gets the port's tensors on
-a given device, so both packages can trace the identical initial state.
+a given device, so both packages can trace the identical initial state —
+and, for CBET, the identical beam ids and (B, P) gain or intensity fields.
 
 A state travels as a dict keyed by ``RayState``'s field names: the per-axis
 fields (``frac``, ``vel``, ``kick``, ``cell``) hold 3-tuples of (N,) arrays,
@@ -58,3 +59,22 @@ def from_jax_context(field4: np.ndarray, state0: dict, live_slots: np.ndarray,
     return (torch.from_numpy(np.array(field4, copy=True)).to(device),
             state_from_numpy(state0, device),
             torch.from_numpy(np.asarray(live_slots, np.int64)).to(device))
+
+
+def tensor_from_numpy(a, device="cpu", dtype=None) -> torch.Tensor:
+    """A tensor on ``device`` from an array of either package (copied):
+    per-slot beam ids, (B, P) gain or intensity fields."""
+    t = torch.from_numpy(np.array(a, copy=True)).to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def from_jax_cbet(field4: np.ndarray, state0: dict, bid: np.ndarray,
+                  gain: np.ndarray, device="cpu"):
+    """``(field4, state0, bid, gain)`` of a JAX CBET trace call
+    (``make_cbet_trace_fn(...)()(field4, gain, bid, state0)``) as the
+    port's tensors on ``device``: the state as a dict (module docstring),
+    ``bid`` int32 per-slot beam ids, ``gain`` the (B, P) table."""
+    return (tensor_from_numpy(field4, device),
+            state_from_numpy(state0, device),
+            tensor_from_numpy(np.asarray(bid, np.int32), device),
+            tensor_from_numpy(gain, device))

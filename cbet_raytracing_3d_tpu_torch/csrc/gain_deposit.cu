@@ -1,0 +1,164 @@
+// CBET window-gain deposit: the exact entry-cell gain model applied over a
+// window of `batch` steps, with the exact termination rule and the edep
+// deposit of the gained increments.
+//
+// Replaces the TPU kernel cbet_raytracing_3d_tpu/ops/pallas_deposit.py::
+// _make_tile_deposit_gain in its "cell" mode (cbet_gain_mode="kernel_cell";
+// the gain branch of _tile_ebox).  The TPU kernel samples the gain table by
+// one-hot matrix products against a VMEM window of the beam's table (with a
+// bf16 hi/lo split to keep f32 values through the MXU) and deposits through
+// the tile box.  Here one thread owns one ray for the whole window, reads
+// its gain with a direct load from the (B, nx*ny*nz) table, carries the
+// cumulative product in a register, and deposits each step with K1's eight
+// atomics (deposit_row.cuh).
+//
+// Contract.  Streams are step-major (batch, n_rays): row j*n_rays + r is
+// ray r's step j.  Ray r belongs to beam r / rays_per_group.  For each step
+// j of the window:
+//   g      = gain[beam, (lcx*ny + lcy)*nz + lcz]     (the step's ENTRY cell)
+//   gcum  *= exp(clamp(g * ds_j, -clip, clip))
+//   u_true = u_nogain_j * gcum
+//   died   = u_true <= stop * uinit[r]
+//   the edep deposit of inc_j * gcum runs up to and including the first
+//   death step (medep); gamma[j, r] = gcum while no death has happened up to
+//   and including step j (mint), else 0.
+// uout[r] is u_true at the first death step, else at the window's end (the
+// frozen true energy).  A live row (ds != 0) whose entry cell lies outside
+// the grid reads gain 0 and is counted in *overflow, as is a row whose
+// deposit has a corner outside the grid (0 on the trace's clamped cells).
+// This is models/cbet.py:846-916 (the XLA window form) row by row.
+//
+// What bounds it on the card: the edep atomics (as K1, 8 per live step) and
+// the gain loads, one 4- or 8-byte load per step from a 240 MB (f32) table
+// whose rows neighbouring rays share; the per-ray arithmetic is a few
+// operations and one exp per step.
+//
+// Built with nvcc -gencode arch=compute_90a,code=sm_90a into the package's
+// shared library with a plain C interface; bound with ctypes
+// (cbet_raytracing_3d_tpu_torch/ops/gain_deposit.py).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "deposit_row.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float exp_t(float x) { return expf(x); }
+__device__ __forceinline__ double exp_t(double x) { return exp(x); }
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gain_window_kernel(T* __restrict__ edep, const int32_t* __restrict__ cx,
+                   const int32_t* __restrict__ cy,
+                   const int32_t* __restrict__ cz, const T* __restrict__ fx,
+                   const T* __restrict__ fy, const T* __restrict__ fz,
+                   const T* __restrict__ inc, const T* __restrict__ ds,
+                   const T* __restrict__ u_nogain,
+                   const T* __restrict__ uinit,
+                   const int32_t* __restrict__ lcx,
+                   const int32_t* __restrict__ lcy,
+                   const int32_t* __restrict__ lcz,
+                   const T* __restrict__ gain, long long n_rays,
+                   long long rays_per_group, int batch, int nx, int ny,
+                   int nz, T clip, T stop, int* __restrict__ overflow,
+                   T* __restrict__ gamma, T* __restrict__ uout) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rays) return;
+  const int nxp = nx + 2, nyp = ny + 2, nzp = nz + 2;
+  const T* g_row = gain + (r / rays_per_group) * ((long long)nx * ny * nz);
+  const T thr = stop * uinit[r];
+  T gcum = T(1), u_true = T(0), uo = T(0);
+  bool any_prev = false;  // a death at an earlier step of the window
+  for (int j = 0; j < batch; ++j) {
+    const long long row = (long long)j * n_rays + r;
+    const int x = lcx[row], y = lcy[row], z = lcz[row];
+    const T dsj = ds[row];
+    T g = T(0);
+    if (x >= 0 && x < nx && y >= 0 && y < ny && z >= 0 && z < nz) {
+      g = g_row[((long long)x * ny + y) * nz + z];
+    } else if (dsj != T(0)) {
+      atomicAdd(overflow, 1);
+    }
+    T a = g * dsj;
+    a = a < -clip ? -clip : (a > clip ? clip : a);
+    gcum *= exp_t(a);
+    u_true = u_nogain[row] * gcum;
+    const bool died = u_true <= thr;
+    if (died && !any_prev) uo = u_true;
+    const bool any_now = any_prev || died;
+    gamma[row] = any_now ? T(0) : gcum;
+    if (!any_prev) {
+      const T v = inc[row] * gcum;
+      if (v != T(0)) {
+        cbet::deposit_row(edep, cx[row], cy[row], cz[row], fx[row], fy[row],
+                          fz[row], v, nxp, nyp, nzp, overflow);
+      }
+    }
+    any_prev = any_now;
+  }
+  uout[r] = any_prev ? uo : u_true;
+}
+
+template <typename T>
+int launch(void* edep, const void* cx, const void* cy, const void* cz,
+           const void* fx, const void* fy, const void* fz, const void* inc,
+           const void* ds, const void* u_nogain, const void* uinit,
+           const void* lcx, const void* lcy, const void* lcz,
+           const void* gain, long long n_rays, long long rays_per_group,
+           int batch, int nx, int ny, int nz, double clip, double stop,
+           void* overflow, void* gamma, void* uout, void* stream) {
+  if (n_rays <= 0 || batch <= 0) return (int)cudaSuccess;
+  if (rays_per_group <= 0) return (int)cudaErrorInvalidValue;
+  const long long blocks = (n_rays + kThreads - 1) / kThreads;
+  gain_window_kernel<T><<<(unsigned int)blocks, kThreads, 0,
+                          (cudaStream_t)stream>>>(
+      (T*)edep, (const int32_t*)cx, (const int32_t*)cy, (const int32_t*)cz,
+      (const T*)fx, (const T*)fy, (const T*)fz, (const T*)inc, (const T*)ds,
+      (const T*)u_nogain, (const T*)uinit, (const int32_t*)lcx,
+      (const int32_t*)lcy, (const int32_t*)lcz, (const T*)gain, n_rays,
+      rays_per_group, batch, nx, ny, nz, (T)clip, (T)stop, (int*)overflow,
+      (T*)gamma, (T*)uout);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry enqueues one launch on `stream` and returns cudaGetLastError():
+// nonzero means the launch was refused.  No synchronization, no allocation.
+// `clip` and `stop` arrive as doubles and are rounded to T once.
+int cbet_gain_window_f32(void* edep, const void* cx, const void* cy,
+                         const void* cz, const void* fx, const void* fy,
+                         const void* fz, const void* inc, const void* ds,
+                         const void* u_nogain, const void* uinit,
+                         const void* lcx, const void* lcy, const void* lcz,
+                         const void* gain, long long n_rays,
+                         long long rays_per_group, int batch, int nx, int ny,
+                         int nz, double clip, double stop, void* overflow,
+                         void* gamma, void* uout, void* stream) {
+  return launch<float>(edep, cx, cy, cz, fx, fy, fz, inc, ds, u_nogain,
+                       uinit, lcx, lcy, lcz, gain, n_rays, rays_per_group,
+                       batch, nx, ny, nz, clip, stop, overflow, gamma, uout,
+                       stream);
+}
+
+int cbet_gain_window_f64(void* edep, const void* cx, const void* cy,
+                         const void* cz, const void* fx, const void* fy,
+                         const void* fz, const void* inc, const void* ds,
+                         const void* u_nogain, const void* uinit,
+                         const void* lcx, const void* lcy, const void* lcz,
+                         const void* gain, long long n_rays,
+                         long long rays_per_group, int batch, int nx, int ny,
+                         int nz, double clip, double stop, void* overflow,
+                         void* gamma, void* uout, void* stream) {
+  return launch<double>(edep, cx, cy, cz, fx, fy, fz, inc, ds, u_nogain,
+                        uinit, lcx, lcy, lcz, gain, n_rays, rays_per_group,
+                        batch, nx, ny, nz, clip, stop, overflow, gamma, uout,
+                        stream);
+}
+
+}  // extern "C"

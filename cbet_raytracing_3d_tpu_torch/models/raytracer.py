@@ -312,6 +312,11 @@ def make_deferred_step_fn(cfg: Config):
     return step
 
 
+def default_device() -> torch.device:
+    """The card when there is one, else the CPU."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
 def resolve_deposit_fn(cfg: Config, device) -> Callable:
     """The deposit function for ``cfg.deposit_backend`` on ``device``:
     "auto" is the wrapper (the kernel for CUDA tensors, the plain version

@@ -1,32 +1,42 @@
-"""Trilinear energy deposit: the CUDA kernel and its plain PyTorch version.
+"""Trilinear energy deposit: the CUDA kernels and their plain PyTorch
+versions.
 
 Counterpart of ``cbet_raytracing_3d_tpu/ops/pallas_deposit.py::
 make_tile_deposit`` (and of ``make_tile_deposit_hbm``, whose contract the
 same kernel covers at any grid size), with the plain version transcribing the
 JAX package's XLA scatter backend (``models/raytracer.py::
-_scatter_corner_parts``).  The kernel is ``csrc/deposit.cu``; its header says
-what bounds it on the card.
+_scatter_corner_parts``).  The kernels are in ``csrc/deposit.cu``; its header
+says what bounds them on the card.
 
-``deposit(edep, cx, cy, cz, fx, fy, fz, inc) -> (edep, overflow)`` keeps the
-TPU kernel's signature without its grid padding: ``edep`` is the natural
+``deposit(edep, cx, cy, cz, fx, fy, fz, inc) -> (edep, overflow)`` (K1) keeps
+the TPU kernel's signature without its grid padding: ``edep`` is the natural
 ghost-padded ``(nx+2, ny+2, nz+2)`` grid, updated IN PLACE and returned;
 per-row inputs are flat ``(n,)`` tensors (int32 cells, floats of the grid's
 dtype) in launch-tile order; ``overflow`` is a 0-dim int32 tensor counting
 live rows with a corner outside the grid (0 when cells are clamped to the
 grid, as the trace keeps them), which were not written.
 
-The wrapper launches the kernel for CUDA tensors (after checking device,
+``deposit_grouped(grids, ..., inc, rays_per_group, n_rays=None)`` (K2) is
+the grouped form, the per-beam CBET intensity fields: ``grids`` is
+``(G, nxp, nyp, nzp)``, and row ``i`` goes into grid
+``(i % n_rays) // rays_per_group`` (rows are one step of ``n_rays`` rays, or
+a step-major window of several).
+
+Each wrapper launches its kernel for CUDA tensors (after checking device,
 dtype, shape and contiguity; it raises on anything else) and takes the plain
-version only for CPU tensors.  ``LAUNCHES`` counts kernel launches.
+version only for CPU tensors.  ``LAUNCHES`` and ``GROUPED_LAUNCHES`` count
+kernel launches.
 """
 
 from __future__ import annotations
 
 import torch
 
-#: number of deposit-kernel launches in this process (the plain version and
-#: the CPU path do not count)
+#: number of K1 deposit-kernel launches in this process (the plain version
+#: and the CPU path do not count)
 LAUNCHES = 0
+#: number of K2 grouped-deposit launches, counted the same way
+GROUPED_LAUNCHES = 0
 
 
 def _corner_parts(cx, cy, cz, fx, fy, fz, inc, shape):
@@ -76,13 +86,51 @@ def deposit_reference(edep, cx, cy, cz, fx, fy, fz, inc):
     return edep, overflow
 
 
-def _check_cuda_args(edep, ints, flts):
+def _check_groups(n_rows, n_rays, rays_per_group, n_groups) -> int:
+    """The grouped deposit's checks; returns ``n_rays`` (default: all rows,
+    one step)."""
+    if n_rays is None:
+        n_rays = n_rows
+    if n_rays <= 0 or rays_per_group <= 0 or n_rows % n_rays:
+        raise ValueError(f"grouped deposit: {n_rows} rows are not whole steps "
+                         f"of n_rays={n_rays} (rays_per_group="
+                         f"{rays_per_group})")
+    if n_rays > n_groups * rays_per_group:
+        # raise, not clamp: a clamped group would pour the overflowing rays'
+        # energy into the last grid (pallas_deposit.py:589-599)
+        raise ValueError(
+            f"grouped deposit called with {n_rays} rays > n_groups*"
+            f"rays_per_group = {n_groups}*{rays_per_group}")
+    return n_rays
+
+
+def deposit_grouped_reference(grids, cx, cy, cz, fx, fy, fz, inc,
+                              rays_per_group, n_rays=None):
+    """The plain PyTorch version of the grouped kernel: one ``index_add_``
+    of the eight corner parts, offset by each row's group, into the flat
+    grids.  Same contract as :func:`deposit_grouped`."""
+    n_rays = _check_groups(cx.shape[0], n_rays, rays_per_group,
+                           grids.shape[0])
+    group = (torch.arange(cx.shape[0], device=cx.device) % n_rays) \
+        // rays_per_group
+    idx, val, ok = _corner_parts(cx, cy, cz, fx, fy, fz, inc,
+                                 grids.shape[1:])
+    overflow = ((inc != 0) & ~ok).sum().to(torch.int32)
+    elems = grids[0].numel()
+    write = ok.repeat(8)
+    idx = torch.where(write, idx + (group * elems).repeat(8), 0)
+    val = torch.where(write, val, 0.0)
+    grids.view(-1).index_add_(0, idx, val)
+    return grids, overflow
+
+
+def _check_cuda_args(edep, ints, flts, grid_dim=3):
     dev = edep.device
     if edep.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"edep must be float32 or float64, got {edep.dtype}")
-    if edep.dim() != 3 or not edep.is_contiguous():
-        raise ValueError("edep must be a contiguous 3-D grid, got shape "
-                         f"{tuple(edep.shape)}")
+    if edep.dim() != grid_dim or not edep.is_contiguous():
+        raise ValueError(f"the grid must be a contiguous {grid_dim}-D tensor, "
+                         f"got shape {tuple(edep.shape)}")
     n = ints[0].shape[0]
     for a in ints + flts:
         if a.device != dev:
@@ -99,18 +147,34 @@ def _check_cuda_args(edep, ints, flts):
             raise TypeError(f"fracs/inc must be {edep.dtype}, got {a.dtype}")
 
 
+def _on_cpu(out, inputs, what):
+    """True when the call takes the plain version (``out`` on the CPU);
+    raises on mixed devices and on devices without a kernel.  Shared by the
+    wrappers of ops/deposit, ops/gain and ops/gain_deposit."""
+    if out.device.type == "cpu":
+        if any(a.device.type != "cpu" for a in inputs):
+            raise ValueError(f"the {what} output is on the CPU but some "
+                             "inputs are not")
+        return True
+    if out.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {out.device}")
+    return False
+
+
+def _raise_on(rc, lib, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.cbet_error_string(rc).decode()} ({rc})")
+
+
 def deposit(edep, cx, cy, cz, fx, fy, fz, inc):
     """Deposit rows into ``edep`` (in place): the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors.  Returns ``(edep,
     overflow)``."""
     global LAUNCHES
     ints, flts = (cx, cy, cz), (fx, fy, fz, inc)
-    if edep.device.type == "cpu":
-        if any(a.device.type != "cpu" for a in ints + flts):
-            raise ValueError("edep is on the CPU but some rows are not")
+    if _on_cpu(edep, ints + flts, "deposit"):
         return deposit_reference(edep, cx, cy, cz, fx, fy, fz, inc)
-    if edep.device.type != "cuda":
-        raise ValueError(f"no deposit kernel for device {edep.device}")
     _check_cuda_args(edep, ints, flts)
     from ..utils import cuda_build
     lib = cuda_build.load()
@@ -122,8 +186,36 @@ def deposit(edep, cx, cy, cz, fx, fy, fz, inc):
         rc = fn(edep.data_ptr(), cx.data_ptr(), cy.data_ptr(), cz.data_ptr(),
                 fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), inc.data_ptr(),
                 cx.shape[0], *edep.shape, overflow.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError("deposit kernel launch failed: "
-                           f"{lib.cbet_error_string(rc).decode()} ({rc})")
+    _raise_on(rc, lib, "deposit")
     LAUNCHES += 1
     return edep, overflow
+
+
+def deposit_grouped(grids, cx, cy, cz, fx, fy, fz, inc, rays_per_group,
+                    n_rays=None):
+    """Deposit rows into their groups' grids (in place): the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors.  ``n_rays`` is the
+    number of rays per step (default: all rows, one step).  Returns
+    ``(grids, overflow)``; raises when ``n_rays > G * rays_per_group``."""
+    global GROUPED_LAUNCHES
+    ints, flts = (cx, cy, cz), (fx, fy, fz, inc)
+    if _on_cpu(grids, ints + flts, "grouped deposit"):
+        return deposit_grouped_reference(grids, cx, cy, cz, fx, fy, fz, inc,
+                                         rays_per_group, n_rays)
+    _check_cuda_args(grids, ints, flts, grid_dim=4)
+    n_rays = _check_groups(cx.shape[0], n_rays, rays_per_group,
+                           grids.shape[0])
+    from ..utils import cuda_build
+    lib = cuda_build.load()
+    fn = (lib.cbet_deposit_grouped_f32 if grids.dtype == torch.float32
+          else lib.cbet_deposit_grouped_f64)
+    overflow = torch.zeros((), dtype=torch.int32, device=grids.device)
+    with torch.cuda.device(grids.device):
+        stream = torch.cuda.current_stream(grids.device).cuda_stream
+        rc = fn(grids.data_ptr(), cx.data_ptr(), cy.data_ptr(), cz.data_ptr(),
+                fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), inc.data_ptr(),
+                cx.shape[0], n_rays, rays_per_group, *grids.shape[1:],
+                overflow.data_ptr(), stream)
+    _raise_on(rc, lib, "grouped deposit")
+    GROUPED_LAUNCHES += 1
+    return grids, overflow

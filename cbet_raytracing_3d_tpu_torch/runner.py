@@ -4,8 +4,9 @@ upload) -> Tracing (device compute) -> Combining (grid download), with the
 reference's phase-timing report, plus run metrics and output writing.
 
 Counterpart of ``cbet_raytracing_3d_tpu/runner.py::run`` and
-``write_outputs`` for the plain trace on one device: no CBET stage, no
-mesh, no tile plan.  The trace runs over the live tiles, unsegmented.
+``write_outputs`` on one device, with the optional CBET stage: no mesh, no
+tile plan.  The trace and the CBET solve run over the live tiles,
+unsegmented.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import torch
 
 from .config import Config
 from .models import raytracer as rt
+from .models.cbet import cbet_solve, check_cbet_config
+from .models.raytracer import default_device
 from .parallel.sharding import pad_rays
 from .utils.output import HAVE_H5PY, save_hdf5, save_npz
 from .utils.timers import PhaseTimers
@@ -32,21 +35,24 @@ class RunResult:
     edep: np.ndarray             # ghost-padded (nx+2, ny+2, nz+2) float64
     stats: dict[str, Any]
     timings: dict[str, float]
+    cbet: Any | None = None      # models.cbet.CbetResult of the CBET stage
 
 
-def default_device() -> torch.device:
-    """The card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-
-
-def estimate_device_bytes(cfg: Config) -> int:
+def estimate_device_bytes(cfg: Config, with_cbet: bool = False) -> int:
     """Device memory a run needs: the counterpart of the JAX package's
     ``estimate_hbm_bytes`` for the port's layout.
 
     * the traced ray state (11 float + 3 int32 + 1 bool per slot) and the
       step's temporaries (about three more states' worth),
     * the (P, 4) field table,
-    * the grids: the ``edep_dtype`` master and the chunk grid."""
+    * the grids: the ``edep_dtype`` master and the chunk grid,
+    * CBET: the solver's copy of the state; the (B, Ph) intensity iterates
+      in the ray dtype (current, new, blend, the zero-gain seed) with the
+      float32 copy the gain reads and the float32 gain it returns; the
+      (B, P) gain table in the ray dtype (plus the float32 upsampling
+      temporaries when the CBET grid is coarsened); the per-beam intensity
+      grids (B, hx+2, hy+2, hz+2), chunk grid and master; in kernel_cell
+      mode the window's (batch, N) streams."""
     layout = rt.build_tile_layout(cfg)
     n = layout.n_slots
     fbytes = 4 if cfg.dtype == "float32" else 8
@@ -55,17 +61,30 @@ def estimate_device_bytes(cfg: Config) -> int:
     nxp, nyp, nzp = cfg.edep_shape
     master_bytes = 8 if cfg.edep_dtype == "float64" else 4
     grids = nxp * nyp * nzp * (master_bytes + fbytes)
-    return 4 * n * state_bytes + P * 4 * fbytes + grids
+    total = 4 * n * state_bytes + P * 4 * fbytes + grids
+    if with_cbet:
+        hx, hy, hz = cfg.cbet_grid_shape
+        B = cfg.nbeams
+        total += n * state_bytes
+        total += B * hx * hy * hz * (4 * fbytes + 2 * 4) + B * P * fbytes
+        if cfg.cbet_grid_downsample > 1:
+            total += 2 * B * P * 4
+        total += 2 * B * (hx + 2) * (hy + 2) * (hz + 2) * fbytes
+        if cfg.cbet_gain_mode == "kernel_cell":
+            # 13 streams (cells, lag cells, fracs, inc, ds, contrib, energy,
+            # gamma) of (batch, N), 4-byte ints counted at the float width
+            total += 13 * max(1, cfg.deposit_batch_steps) * n * fbytes
+    return total
 
 
-def check_memory(cfg: Config, device) -> None:
+def check_memory(cfg: Config, device, with_cbet: bool = False) -> None:
     """Fail fast with a clear message when the run cannot fit on the card
     (``torch.cuda.mem_get_info``) — unlike the reference, which logs
     allocation errors and continues (SURVEY.md §5.3).  No-op on the CPU."""
     device = torch.device(device)
     if device.type != "cuda":
         return
-    need = estimate_device_bytes(cfg)
+    need = estimate_device_bytes(cfg, with_cbet)
     free, total = torch.cuda.mem_get_info(device)
     if need > 0.95 * free:
         raise RuntimeError(
@@ -74,11 +93,16 @@ def check_memory(cfg: Config, device) -> None:
             f"{device} — reduce grid or ray counts")
 
 
-def run(cfg: Config, *, device=None, verbose: bool = True) -> RunResult:
+def run(cfg: Config, *, with_cbet: bool = False, device=None,
+        verbose: bool = True) -> RunResult:
     """Full simulation run with reference-parity phase accounting, on
-    ``device`` (default: the card when there is one, else the CPU)."""
+    ``device`` (default: the card when there is one, else the CPU).
+    ``with_cbet`` adds the "CBET" phase: the fixed-point solve over the same
+    scene (``RunResult.cbet``)."""
     device = torch.device(device) if device is not None else default_device()
-    check_memory(cfg, device)
+    if with_cbet:
+        check_cbet_config(cfg)          # refuse before the trace runs
+    check_memory(cfg, device, with_cbet)
     timers = PhaseTimers(device)
 
     with timers.phase("Init"):
@@ -103,34 +127,67 @@ def run(cfg: Config, *, device=None, verbose: bool = True) -> RunResult:
     stats["devices"] = 1
     stats["steps_executed"] = steps
 
+    cbet_result = None
+    if with_cbet:
+        with timers.phase("CBET"):
+            cbet_result = cbet_solve(cfg, ctx, device=device)
+
     timings = timers.as_dict()
     if verbose:
         print(timers.report(), file=sys.stderr)
-    return RunResult(cfg=cfg, edep=edep, stats=stats, timings=timings)
+    return RunResult(cfg=cfg, edep=edep, stats=stats, timings=timings,
+                     cbet=cbet_result)
 
 
 def write_outputs(res: RunResult, outdir: str, formats: tuple[str, ...] = ("npz",),
                   basename: str = "edep") -> list[str]:
-    """Persist a run in the given formats (npz, hdf5, txt, json)."""
+    """Persist a run in the given formats (npz, hdf5, txt, json).  With the
+    CBET stage, its coupled deposition, per-beam intensity fields and
+    convergence record are written as the JAX package writes them: npz
+    ``cbet_*`` extras, a ``*_cbet`` sibling for the schema-fixed hdf5 and
+    txt formats, and a "cbet" json section."""
     os.makedirs(outdir, exist_ok=True)
+    cbet = res.cbet
     written = []
     for fmt in formats:
         path = os.path.join(outdir, f"{basename}.{fmt}")
+        cpath = os.path.join(outdir, f"{basename}_cbet.{fmt}")
         if fmt == "npz":
-            save_npz(path, res.cfg, res.edep, res.stats)
+            extras = {}
+            if cbet is not None:
+                extras = {"cbet_edep": cbet.edep,
+                          "cbet_intensity": cbet.intensity,
+                          "cbet_iterations": np.int64(cbet.iterations),
+                          "cbet_converged": np.bool_(cbet.converged),
+                          "cbet_history": np.asarray(cbet.history)}
+            save_npz(path, res.cfg, res.edep, res.stats, extras=extras)
         elif fmt == "hdf5":
             if not HAVE_H5PY:
                 print("warning: h5py unavailable, skipping hdf5 output",
                       file=sys.stderr)
                 continue
             save_hdf5(path, res.cfg, res.edep)
+            if cbet is not None:
+                save_hdf5(cpath, res.cfg, cbet.edep)
+                written.append(cpath)
         elif fmt == "txt":
             from .utils.native import write_print_dump
             write_print_dump(path, res.edep)
+            if cbet is not None:
+                write_print_dump(cpath, cbet.edep)
+                written.append(cpath)
         elif fmt == "json":
+            payload = {"stats": res.stats, "timings": res.timings}
+            if cbet is not None:
+                payload["cbet"] = {
+                    "iterations": cbet.iterations,
+                    "converged": cbet.converged,
+                    "history": [float(h) for h in cbet.history],
+                    "edep_total": float(cbet.edep.sum()),
+                    "stats": cbet.stats,
+                }
             with open(path, "w") as f:
-                json.dump({"stats": res.stats, "timings": res.timings}, f,
-                          indent=2)
+                json.dump(payload, f, indent=2)
         else:
             raise ValueError(f"unknown output format: {fmt}")
         written.append(path)

@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``csrc/*.cu`` have a plain C interface.  ``nvcc`` compiles
-them for Hopper (``sm_90a``) into one shared library under ``_build/`` (a
-directory that git ignores) at first use; the library is loaded with
-``ctypes``.  The file name carries a hash of the sources and flags, so an
-edited source is rebuilt and never served from a stale build.
+The sources under ``csrc/*.cu`` (with the headers ``csrc/*.cuh`` they
+include) have a plain C interface.  ``nvcc`` compiles each source for Hopper
+(``sm_90a``) into an object file, all of them at once in parallel, and links
+them into one shared library under ``_build/`` (a directory that git
+ignores) at first use; the library is loaded with ``ctypes``.  The file name
+carries a hash of the sources, headers and flags, so an edited source is
+rebuilt and never served from a stale build.
 
 A failed build or load raises: there is no fallback for a kernel.
 """
@@ -22,8 +24,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -31,6 +33,10 @@ _lib: ctypes.CDLL | None = None
 
 def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
 def find_nvcc() -> str:
@@ -48,7 +54,8 @@ def find_nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
+        h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libcbet_kernels_{h.hexdigest()[:16]}.so")
@@ -56,21 +63,50 @@ def library_path() -> str:
 
 def build(force: bool = False) -> str:
     """Compile the kernels if their library is missing (or ``force``);
-    return the library path.  Raises with nvcc's output on failure."""
+    return the library path.  One ``nvcc -c`` per source, all started
+    together, then one link.  Raises with nvcc's output on failure."""
     path = library_path()
     if os.path.exists(path) and not force:
         return path
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
+    nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.tmp{os.getpid()}"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
+    tag = f"{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+            for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        failed = []
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = f"{path}.tmp{tag}"
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True,
+                              timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(link)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return path
 
 
@@ -87,11 +123,26 @@ def load() -> ctypes.CDLL:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name in ("cbet_deposit_f32", "cbet_deposit_f64"):
-        fn = getattr(lib, name)
+    f, d = ctypes.c_float, ctypes.c_double
+    signatures = {
         # (edep, cx, cy, cz, fx, fy, fz, inc, n, nxp, nyp, nzp, overflow,
-        #  stream) -> cudaError_t
-        fn.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, p, p]
-        fn.restype = ctypes.c_int
+        #  stream)
+        "cbet_deposit": [p] * 8 + [ll, i, i, i, p, p],
+        # (grids, cx, cy, cz, fx, fy, fz, inc, n, n_rays, rays_per_group,
+        #  nxp, nyp, nzp, overflow, stream)
+        "cbet_deposit_grouped": [p] * 8 + [ll, ll, ll, i, i, i, p, p],
+        # (edep, cx, cy, cz, fx, fy, fz, inc, ds, u_nogain, uinit, lcx, lcy,
+        #  lcz, gain, n_rays, rays_per_group, batch, nx, ny, nz, clip, stop,
+        #  overflow, gamma, uout, stream)
+        "cbet_gain_window": [p] * 15 + [ll, ll, i, i, i, i, d, d, p, p, p, p],
+    }
+    for stem, argtypes in signatures.items():
+        for suffix in ("_f32", "_f64"):
+            fn = getattr(lib, stem + suffix)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int          # cudaError_t
+    # (pair_u, rhat_pre, intensity, out, bo, B, P, iaw2, stream)
+    lib.cbet_gain_f32.argtypes = [p, p, p, p, i, i, ll, f, p]
+    lib.cbet_gain_f32.restype = ctypes.c_int
     lib.cbet_error_string.argtypes = [ctypes.c_int]
     lib.cbet_error_string.restype = ctypes.c_char_p

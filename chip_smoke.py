@@ -24,6 +24,21 @@ Phases (one line each; any failure exits non-zero before the last line):
 6. timing: median of 3 synchronized full traces with the kernel and with the
    plain version, in turns.
 7. determinism: rel-L2 between two kernel traces (float atomics reorder).
+8. CBET kernels vs plain, at the main path's shapes, timed with CUDA events:
+   the grouped intensity deposit (K2) into 60 beam grids, f32 and f64, and
+   its refusal of more rays than its groups hold; the gain reduction (K3) at
+   60 beams x 100^3 nodes and in its b_out form; the window-gain deposit
+   (K4) on an OMEGA window (5 steps, mid-trace, a smooth synthetic gain of
+   both signs, rays dying mid-window), f32 and f64.
+9. OMEGA CBET, lookup mode: ``runner.run(Config(), with_cbet=True)`` on the
+   card and the same in float64 (the exact reference); both converge in 5
+   iterations; f32 against f64; both against ``artifacts/cbet_golden.npz``;
+   K1/K2 launches equal the steps traced, K3 launches the iterations.
+10. OMEGA CBET, kernel_cell mode (the JAX bench's configuration): f32 and
+   f64 against phase 9's solves; K4 launches equal the windows traced.
+11. timing: a 1-iteration warm-up per solver, then full kernel_cell solves
+   with the kernels and with the plain versions of K1-K4, in turns;
+   median solve seconds and per-iteration gain/trace/update seconds.
 
 Then one JSON line describing the kernels, the ``nvidia-smi`` line, and the
 final ``{"ok": true, "device": ...}`` line.
@@ -44,6 +59,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "cbet_raytracing_3d_tpu_torch"
 OMEGA_GOLDEN = os.path.join(REPO, "artifacts", "omega_golden.npz")
 OMEGA_TOTAL = 1.5510306647974894e18
+CBET_GOLDEN = os.path.join(REPO, "artifacts", "cbet_golden.npz")
+CBET_TOTAL = 1.6515210646281257e18
+CBET_HISTORY = (0.30723, 0.12011, 0.05411, 0.00817, 0.00211)
 CONFIG1_GOLDEN = os.path.join(REPO, "tests", "golden", "config1_oracle.npz")
 SEED = 20261016
 
@@ -87,6 +105,70 @@ def to_device(cell, frac, inc, dtype, device):
     return ([torch.as_tensor(c, device=device) for c in cell]
             + [torch.as_tensor(f, dtype=dtype, device=device) for f in frac]
             + [torch.as_tensor(inc, dtype=dtype, device=device)])
+
+
+def cbet_layout(cfg, ctx, device, dtype=None):
+    """The CBET solver's slot layout on ``device``: each beam's launched
+    tiles, block-padded (``models.cbet.live_tile_slots``); returns
+    ``(state, rays_per_group)``."""
+    from cbet_raytracing_3d_tpu_torch.models import cbet
+    from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
+    slots = cbet.live_tile_slots(cfg, ctx)
+    state = rt.select_rays(ctx.state0, slots).to(device)
+    if dtype is not None:
+        state = state.map(lambda a: a.to(dtype) if a.is_floating_point()
+                          else a)
+    return state, len(slots) // cfg.nbeams
+
+
+def smooth_gain(rng, cfg, scale, dtype, device, block=4):
+    """A smooth synthetic (B, P) gain field of both signs: a normal field
+    on every ``block``-th node, repeated over the block (the field of
+    tests/test_cbet.py:1063-1069), times ``scale``."""
+    import torch
+    n = [-(-m // block) for m in (cfg.nx, cfg.ny, cfg.nz)]
+    out = torch.empty((cfg.nbeams, cfg.nx * cfg.ny * cfg.nz), dtype=dtype,
+                      device=device)
+    ones = np.ones((block,) * 3)
+    for b in range(cfg.nbeams):
+        g = np.kron(rng.standard_normal(n), ones)[:cfg.nx, :cfg.ny, :cfg.nz]
+        out[b] = torch.as_tensor(g.reshape(-1) * scale, dtype=dtype)
+    return out
+
+
+def window_case(cfg, ctx, device, dtype, warm_steps, gain):
+    """One kernel_cell window of the scene's CBET layout after
+    ``warm_steps`` ordinary steps: ``(state, args)`` with ``state`` the
+    post-window state and ``args`` the window-gain deposit's arguments
+    after ``edep`` (``models.cbet.make_window_advance``)."""
+    from cbet_raytracing_3d_tpu_torch.models import cbet
+    from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
+    state, rpg = cbet_layout(cfg, ctx, device, dtype)
+    field4 = ctx.field4.to(device, dtype)
+    step = rt.make_deferred_step_fn(cfg)
+    for _ in range(warm_steps):
+        state, _ = step(state, field4)
+    st, w = cbet.make_window_advance(cfg)(state, field4)
+    args = (w["cx"], w["cy"], w["cz"], w["fx"], w["fy"], w["fz"], w["inc"],
+            w["ds"], w["u_nogain"], st.uray_init, w["lcx"], w["lcy"],
+            w["lcz"], gain, rpg, cbet.GAIN_CLIP, cfg.stop_fraction)
+    return st, args
+
+
+def gain_case(rng, cfg, ctx, device):
+    """The gain reduction's inputs at the scene's shapes: ``pair_u`` and
+    ``rhat_pre`` as ``models.cbet.make_gain_fn`` builds them, and a random
+    float32 intensity of the W/cm^2 scale."""
+    import torch
+    from cbet_raytracing_3d_tpu_torch.models import cbet
+    rhat = cbet._node_rhat(cfg)
+    pre = cbet.gain_prefactor_field(cfg, ctx.fields).reshape(-1)
+    rp = np.concatenate([rhat, pre[None]]).astype(np.float32)
+    pu = cbet.pair_couplings(ctx.beam_norm, cfg.machnum).astype(np.float32)
+    inten = rng.uniform(0.0, 1e14, size=(cfg.nbeams, rhat.shape[1]))
+    return (torch.as_tensor(pu, device=device),
+            torch.as_tensor(rp, device=device),
+            torch.as_tensor(inten, dtype=torch.float32, device=device))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -276,16 +358,312 @@ def main() -> int:
     say("7 determinism", f"rel-L2 between two kernel traces {drift:.3e} "
         "(< 1e-6)")
 
-    print(json.dumps({"kernels": [{
-        "name": "deposit", "route": "cuda",
-        "source": f"{PKG}/csrc/deposit.cu",
-        "replaces": "cbet_raytracing_3d_tpu/ops/pallas_deposit.py:527",
-        "launches": launches, **kern}]}))
+    # 8. CBET kernels vs plain, at the main path's shapes
+    from cbet_raytracing_3d_tpu_torch.models import cbet
+    from cbet_raytracing_3d_tpu_torch.ops import gain as gop
+    from cbet_raytracing_3d_tpu_torch.ops import gain_deposit as gdep
+    rows8, kern8 = cbet_kernels_vs_plain(cfg, ctx, dev, rng)
+    for line in rows8:
+        say("8 cbet-kernels", line)
+
+    # 9. the CBET main path, lookup mode, through the runner; then float64
+    counters = (("K1", dep, "LAUNCHES"), ("K2", dep, "GROUPED_LAUNCHES"),
+                ("K3", gop, "LAUNCHES"), ("K4", gdep, "LAUNCHES"))
+
+    def zero_counts():
+        for _, mod, attr in counters:
+            setattr(mod, attr, 0)
+
+    def read_counts():
+        return {name: getattr(mod, attr) for name, mod, attr in counters}
+
+    golden_c = np.load(CBET_GOLDEN)["edep"].astype(np.float64)
+    zero_counts()
+    look = run(cfg, with_cbet=True, device=dev, verbose=False)
+    n9 = read_counts()
+    look64 = run(cfg.replace(dtype="float64"), with_cbet=True, device=dev,
+                 verbose=False)
+    c32, c64 = look.cbet, look64.cbet
+    steps9 = sum(c32.stats["trace_steps"])
+    d_gold = rel_l2(c64.edep, golden_c)
+    d_gold_tot = abs(c64.edep.sum() - CBET_TOTAL) / CBET_TOTAL
+    # the golden's own distance from the exact solve sets its bars
+    # (the OMEGA trace golden sits 1.47e-4 from the exact trace)
+    exact_ok = d_gold < 1.5e-4 and d_gold_tot < 1e-4
+    bar_grid = 2e-4 if exact_ok else d_gold + 5e-5
+    bar_tot = 1e-4 if exact_ok else d_gold_tot + 5e-5
+    hist_rel = [abs(a / b - 1) for a, b in zip(c32.history, c64.history)]
+    # per-beam intensity fields resolve single rays' cell choices, which f32
+    # positions flip: the zero-gain (iteration-0) intensity of the f32 trace
+    # is already ~3e-4 from the f64 one (the JAX package's f32 trace shows
+    # the same).  The solve is held not to amplify that distance.
+    i0 = {}
+    for dt in ("float32", "float64"):
+        c = cfg.replace(dtype=dt, cbet_max_iters=0)
+        i0[dt] = cbet.cbet_solve(c, rt.prepare(c), dev).intensity
+    d_i0 = rel_l2(i0["float32"], i0["float64"])
+    bar_int = max(1e-4, 1.5 * d_i0)
+    for tag, r in (("f32", look), ("f64", look64)):
+        c = r.cbet
+        say("9 cbet-lookup", f"{tag}: {c.iterations} iterations, history "
+            f"{[f'{h:.5f}' for h in c.history]} (golden {list(CBET_HISTORY)}); "
+            f"golden rel-L2 {rel_l2(c.edep, golden_c):.6e}, edep_total "
+            f"{c.edep.sum():.17g} (golden rel "
+            f"{abs(c.edep.sum() - CBET_TOTAL) / CBET_TOTAL:.6e}); "
+            f"CBET/uncoupled edep_total "
+            f"{c.edep.sum() / r.edep.sum():.9f}; rays_terminated "
+            f"{c.stats['rays_terminated']} rays_alive_at_end "
+            f"{c.stats['rays_alive_at_end']}; CBET phase "
+            f"{r.timings['CBET']:.6f} s")
+    say("9 cbet-lookup", f"f32 vs f64: edep rel-L2 "
+        f"{rel_l2(c32.edep, c64.edep):.3e}, intensity rel-L2 "
+        f"{rel_l2(c32.intensity, c64.intensity):.3e} (iteration 0: "
+        f"{d_i0:.3e}), history max rel {max(hist_rel):.3e}; f64 vs golden: "
+        f"grid {d_gold:.6e}, total {d_gold_tot:.6e} -> bars grid "
+        f"{bar_grid:.3e} total {bar_tot:.3e}; launches {n9} over "
+        f"{len(c32.stats['trace_steps'])} traces of {steps9} steps")
+    checks = {}
+    for tag, r in (("f32", look), ("f64", look64)):
+        c = r.cbet
+        tot = abs(c.edep.sum() - CBET_TOTAL) / CBET_TOTAL
+        checks.update({
+            f"{tag}: 5 iterations, converged": (c.iterations == 5
+                                                and c.converged),
+            f"{tag}: finite, shape": bool(np.isfinite(c.edep).all()
+                                          and c.edep.shape == golden_c.shape
+                                          and np.isfinite(c.intensity).all()),
+            f"{tag}: golden rel-L2 < {bar_grid:.3e}":
+                rel_l2(c.edep, golden_c) < bar_grid,
+            f"{tag}: golden total < {bar_tot:.3e}": tot < bar_tot,
+            f"{tag}: history within 20% of the golden's": all(
+                abs(h / g - 1) < 0.2 for h, g in zip(c.history,
+                                                     CBET_HISTORY)),
+        })
+    checks.update({
+        "f32 vs f64 edep rel-L2 < 1e-4": rel_l2(c32.edep, c64.edep) < 1e-4,
+        f"f32 vs f64 intensity rel-L2 < {bar_int:.3e}":
+            rel_l2(c32.intensity, c64.intensity) < bar_int,
+        "f32 history within 2% of f64": max(hist_rel) < 0.02,
+        "K3 launches == iterations": n9["K3"] == c32.iterations,
+        "K2 launches == CBET steps > 0": n9["K2"] == steps9 > 0,
+        "K1 launches == all steps": (
+            n9["K1"] == steps9 + look.stats["steps_executed"]),
+        "K4 not on the lookup path": n9["K4"] == 0,
+    })
+    if not all(checks.values()):
+        raise RuntimeError(f"OMEGA CBET (lookup) failed: "
+                           f"{[k for k, v in checks.items() if not v]}")
+
+    # 10. kernel_cell, the JAX bench's configuration
+    cfg_kc = cfg.replace(cbet_gain_mode="kernel_cell")
+    zero_counts()
+    kc = run(cfg_kc, with_cbet=True, device=dev, verbose=False)
+    n10 = read_counts()
+    kc64 = run(cfg_kc.replace(dtype="float64"), with_cbet=True, device=dev,
+               verbose=False)
+    k32, k64 = kc.cbet, kc64.cbet
+    windows = sum(k32.stats["trace_steps"]) // cfg.deposit_batch_steps
+    say("10 cbet-kernel-cell", f"iterations {k32.iterations}/"
+        f"{k64.iterations}; history f32 "
+        f"{[f'{h:.5f}' for h in k32.history]}; vs lookup: f32 edep "
+        f"{rel_l2(k32.edep, c32.edep):.3e} intensity "
+        f"{rel_l2(k32.intensity, c32.intensity):.3e}, f64 edep "
+        f"{rel_l2(k64.edep, c64.edep):.3e} intensity "
+        f"{rel_l2(k64.intensity, c64.intensity):.3e}; golden rel-L2 f32 "
+        f"{rel_l2(k32.edep, golden_c):.6e} f64 "
+        f"{rel_l2(k64.edep, golden_c):.6e}; launches {n10} over {windows} "
+        f"windows; CBET phase {kc.timings['CBET']:.6f} s")
+
+    checks = {
+        "5 iterations (f32, f64)": k32.iterations == k64.iterations == 5,
+        "f32 edep vs lookup < 1e-5": rel_l2(k32.edep, c32.edep) < 1e-5,
+        "f32 intensity vs lookup < 1e-5":
+            rel_l2(k32.intensity, c32.intensity) < 1e-5,
+        "f64 edep vs lookup < 1e-10": rel_l2(k64.edep, c64.edep) < 1e-10,
+        "f64 intensity vs lookup < 1e-10":
+            rel_l2(k64.intensity, c64.intensity) < 1e-10,
+        "f64 terminations equal": all(
+            k64.stats[key] == c64.stats[key]
+            for key in ("rays_terminated", "rays_alive_at_end")),
+        "K4 launches == windows > 0": n10["K4"] == windows > 0,
+        "K2 launches == windows": n10["K2"] == windows,
+        "K3 launches == iterations": n10["K3"] == k32.iterations,
+        "K1 only in the uncoupled trace":
+            n10["K1"] == kc.stats["steps_executed"],
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"OMEGA CBET (kernel_cell) failed: "
+                           f"{[k for k, v in checks.items() if not v]}; "
+                           f"launches {n10}")
+
+    # 11. timing: kernel_cell solves, kernels and plain versions in turns
+    ctx_kc = rt.prepare(cfg_kc)
+    variants = {"kernel": cbet.kernel_ops(), "plain": cbet.plain_ops()}
+    for ops in variants.values():      # warm-up: builds the solver + seed
+        cbet.cbet_solve(cfg_kc.replace(cbet_max_iters=1), ctx_kc, dev,
+                        ops=ops)
+    solves = {k: [] for k in variants}
+    for which in ("kernel", "plain", "plain", "kernel", "kernel", "plain"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = cbet.cbet_solve(cfg_kc, ctx_kc, dev, ops=variants[which])
+        solves[which].append((time.perf_counter() - t, r))
+    for which, runs in solves.items():
+        secs = [x[0] for x in runs]
+        st = runs[int(np.argsort(secs)[1])][1].stats
+        if not all(x[1].iterations == 5 for x in runs):
+            raise RuntimeError(f"{which} timing solves did not take 5 "
+                               "iterations")
+        say("11 cbet-timing", f"{which}: kernel_cell solve median "
+            f"{statistics.median(secs):.6f} s of "
+            f"{[round(x, 6) for x in secs]} (seeded {st['seeded_zero_gain']})"
+            f"; median solve's iterations: gain "
+            f"{[round(x, 6) for x in st['iter_gain_seconds']]} trace "
+            f"{[round(x, 6) for x in st['iter_trace_seconds']]} update "
+            f"{[round(x, 6) for x in st['iter_update_seconds']]} s; "
+            f"card {smi}")
+
+    src = f"{PKG}/csrc"
+    kernels = [
+        {"name": "deposit", "route": "cuda", "source": f"{src}/deposit.cu",
+         "replaces": "cbet_raytracing_3d_tpu/ops/pallas_deposit.py:527",
+         "launches": launches, **kern},
+        {"name": "deposit_grouped", "route": "cuda",
+         "source": f"{src}/deposit.cu",
+         "replaces": "cbet_raytracing_3d_tpu/ops/pallas_deposit.py:527",
+         "launches": n9["K2"], **kern8["K2"]},
+        {"name": "gain", "route": "cuda", "source": f"{src}/gain.cu",
+         "replaces": "cbet_raytracing_3d_tpu/ops/pallas_gain.py:58",
+         "launches": n9["K3"], **kern8["K3"]},
+        {"name": "deposit_gain_window", "route": "cuda",
+         "source": f"{src}/gain_deposit.cu",
+         "replaces": "cbet_raytracing_3d_tpu/ops/pallas_deposit.py:687",
+         "launches": n10["K4"], **kern8["K4"]},
+    ]
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
+    """Phase 8: K2, K3 and K4 against their plain versions on the card at
+    the OMEGA CBET path's shapes.  Returns (report lines, per-kernel
+    {max_abs_err, ms, plain_ms} of the float32 cases)."""
+    import torch
+    from cbet_raytracing_3d_tpu_torch.models import cbet
+    from cbet_raytracing_3d_tpu_torch.ops import deposit as dep
+    from cbet_raytracing_3d_tpu_torch.ops import gain as gop
+    from cbet_raytracing_3d_tpu_torch.ops import gain_deposit as gdep
+
+    lines, kern = [], {}
+
+    def compare(got, want):
+        g64 = np.asarray(got.double().cpu().numpy(), np.float64)
+        w64 = np.asarray(want.double().cpu().numpy(), np.float64)
+        return (rel_l2(g64, w64), float(np.abs(g64 - w64).max()),
+                bool(np.isfinite(g64).all()))
+
+    # K2: one step of the CBET layout's rows into 60 beam grids
+    _, rpg = cbet_layout(cfg, ctx, "cpu")
+    n = rpg * cfg.nbeams
+    gshape = (cfg.nbeams,) + cfg.edep_shape
+    rows = deposit_rows(rng, (cfg.nx, cfg.ny, cfg.nz), n)
+    for dt in (torch.float32, torch.float64):
+        args = to_device(*rows, dt, dev)
+        before = dep.GROUPED_LAUNCHES
+        got, of_k = dep.deposit_grouped(
+            torch.zeros(gshape, dtype=dt, device=dev), *args, rpg)
+        want, of_p = dep.deposit_grouped_reference(
+            torch.zeros(gshape, dtype=dt, device=dev), *args, rpg)
+        err, mx, fin = compare(got, want)
+        tol = 1e-5 if dt == torch.float32 else 1e-12
+        if not (err < tol and fin and int(of_k) == int(of_p) == 0
+                and dep.GROUPED_LAUNCHES == before + 1):
+            raise RuntimeError(f"K2 vs plain failed ({dt}): rel-L2 {err}, "
+                               f"overflow {int(of_k)}/{int(of_p)}")
+        try:
+            dep.deposit_grouped(got, *args, rpg - 1)
+        except ValueError:
+            pass
+        else:
+            raise RuntimeError("K2 took more rays than its groups hold")
+        line = (f"K2 grouped deposit {dt} {n} rows into {gshape}: rel-L2 "
+                f"{err:.3e} max-abs {mx:.6e} (< {tol:g}); over-count "
+                "refused")
+        if dt == torch.float32:
+            ms = cuda_ms(lambda: dep.deposit_grouped(got, *args, rpg), 20)
+            ms_p = cuda_ms(
+                lambda: dep.deposit_grouped_reference(want, *args, rpg), 5)
+            kern["K2"] = {"max_abs_err": mx, "ms": ms, "plain_ms": ms_p}
+            line += f"; kernel {ms:.4f} ms plain {ms_p:.4f} ms per call"
+        lines.append(line)
+        del args, got, want
+
+    # K3: 60 beams x 100^3 nodes, and the b_out form (8 output rows)
+    pu, rp, inten = gain_case(rng, cfg, ctx, dev)
+    for bo in (cfg.nbeams, 8):
+        before = gop.LAUNCHES
+        got = gop.gain(pu[:bo].contiguous(), rp, inten)
+        want = gop.gain_reference(pu[:bo].contiguous(), rp, inten)
+        err, mx, fin = compare(got, want)
+        if not (err < 1e-5 and fin and gop.LAUNCHES == before + 1
+                and float(want.abs().max()) > 0):
+            raise RuntimeError(f"K3 vs plain failed (Bo={bo}): rel-L2 {err}")
+        line = (f"K3 gain Bo={bo} B={cfg.nbeams} P={inten.shape[1]}: rel-L2 "
+                f"{err:.3e} max-abs {mx:.6e} (< 1e-5; the whole difference "
+                "is nvcc's FMA contraction)")
+        if bo == cfg.nbeams:
+            pu_c = pu.contiguous()
+            ms = cuda_ms(lambda: gop.gain(pu_c, rp, inten), 10)
+            ms_p = cuda_ms(lambda: gop.gain_reference(pu_c, rp, inten), 3)
+            kern["K3"] = {"max_abs_err": mx, "ms": ms, "plain_ms": ms_p}
+            line += f"; kernel {ms:.4f} ms plain {ms_p:.4f} ms per call"
+        lines.append(line)
+    del pu, rp, inten
+
+    # K4: an OMEGA window 150 steps in (3/8 of nt; the last rays die near
+    # step 250), smooth gain of both signs
+    for dt in (torch.float32, torch.float64):
+        gain = smooth_gain(np.random.default_rng(SEED + 4), cfg, 40.0, dt,
+                           dev)
+        st, args = window_case(cfg, ctx, dev, dt, 3 * cfg.nt // 8, gain)
+        before = gdep.LAUNCHES
+        e_k, of_k, gam_k, u_k = gdep.deposit_gain_window(
+            torch.zeros(cfg.edep_shape, dtype=dt, device=dev), *args)
+        e_p, of_p, gam_p, u_p = gdep.deposit_gain_window_reference(
+            torch.zeros(cfg.edep_shape, dtype=dt, device=dev), *args)
+        thr = cfg.stop_fraction * st.uray_init
+        alive_k = st.alive & (u_k > thr)
+        alive_p = st.alive & (u_p > thr)
+        live = args[7] != 0                       # ds: alive at step entry
+        mid = int((live[0] & (gam_p[0] > 0) & (gam_p[-1] == 0)).sum())
+        errs = [compare(a, b) for a, b in ((e_k, e_p), (gam_k, gam_p),
+                                           (u_k, u_p))]
+        tol = 1e-5 if dt == torch.float32 else 1e-12
+        if not (all(e < tol and f for e, _, f in errs)
+                and bool(torch.equal(alive_k, alive_p)) and mid > 0
+                and int(of_k) == int(of_p) == 0
+                and gdep.LAUNCHES == before + 1):
+            raise RuntimeError(f"K4 vs plain failed ({dt}): {errs}, "
+                               f"mid-window deaths {mid}")
+        line = (f"K4 window-gain deposit {dt} 5 x {st.n} rows: rel-L2 edep "
+                f"{errs[0][0]:.3e} gamma {errs[1][0]:.3e} uout "
+                f"{errs[2][0]:.3e} (< {tol:g}); alive identical; "
+                f"{mid} rays die mid-window")
+        if dt == torch.float32:
+            grid = torch.zeros(cfg.edep_shape, dtype=dt, device=dev)
+            ms = cuda_ms(lambda: gdep.deposit_gain_window(grid, *args), 20)
+            ms_p = cuda_ms(
+                lambda: gdep.deposit_gain_window_reference(grid, *args), 5)
+            kern["K4"] = {"max_abs_err": max(e[1] for e in errs), "ms": ms,
+                          "plain_ms": ms_p}
+            line += f"; kernel {ms:.4f} ms plain {ms_p:.4f} ms per call"
+        lines.append(line)
+        del gain, args, st
+    return lines, kern
 
 
 if __name__ == "__main__":

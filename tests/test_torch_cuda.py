@@ -1,6 +1,8 @@
-"""The port on the card: the CUDA deposit kernel against its plain PyTorch
-version, and traces on the card against the CPU trace and the config-1
-golden.  Marked ``cuda``; each test skips without a CUDA device.
+"""The port on the card: the CUDA kernels (the deposit K1, the grouped
+deposit K2, the gain reduction K3, the window-gain deposit K4) against their
+plain PyTorch versions, traces on the card against the CPU trace and the
+config-1 golden, and CBET solves through the kernels against solves through
+the plain versions.  Marked ``cuda``; each test skips without a CUDA device.
 
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies (the repository's conftest imports jax, hence
@@ -19,6 +21,8 @@ from chip_smoke import deposit_rows, rel_l2, to_device
 from cbet_raytracing_3d_tpu_torch.config import Config
 from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
 from cbet_raytracing_3d_tpu_torch.ops import deposit as dep
+from cbet_raytracing_3d_tpu_torch.ops import gain as gop
+from cbet_raytracing_3d_tpu_torch.ops import gain_deposit as gdep
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -110,3 +114,96 @@ def test_config1_golden_on_card(cuda):
                                               s0.to(cuda))
     assert int(oflow) == 0
     assert rel_l2(edep.cpu(), data["edep"]) < 1e-9
+
+
+# ---- the CBET kernels (K2, K3, K4) against their plain versions ----------
+
+CBET_SMALL = dict(nbeams=4, rays_per_zone=1, nx=32, ny=32, nz=32,
+                  chunk_steps=8, deposit_batch_steps=4)
+
+
+@pytest.fixture(scope="module")
+def cbet_ctx():
+    return rt.prepare(Config(**CBET_SMALL))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_grouped_kernel_matches_plain(cuda, dtype, tol):
+    groups, rpg, batch = 4, 3000, 5
+    grid = (20, 18, 16)
+    rows = deposit_rows(np.random.default_rng(4), grid, batch * groups * rpg,
+                        boundary=0.2)
+    args = to_device(*rows, dtype, cuda)
+    shape = (groups,) + tuple(g + 2 for g in grid)
+    before = dep.GROUPED_LAUNCHES
+    got, of = dep.deposit_grouped(torch.zeros(shape, dtype=dtype,
+                                              device=cuda), *args, rpg,
+                                  groups * rpg)
+    want, of_p = dep.deposit_grouped_reference(
+        torch.zeros(shape, dtype=dtype, device=cuda), *args, rpg,
+        groups * rpg)
+    assert dep.GROUPED_LAUNCHES == before + 1
+    assert int(of) == int(of_p) == 0
+    assert rel_l2(got.cpu(), want.cpu()) < tol
+    with pytest.raises(ValueError):
+        dep.deposit_grouped(got, *args, rpg - 1, groups * rpg)
+
+
+@pytest.mark.parametrize("bo", [3, 1])
+def test_gain_kernel_matches_plain(cuda, cbet_ctx, bo):
+    from chip_smoke import gain_case
+    cfg = Config(**CBET_SMALL)
+    pu, rp, inten = gain_case(np.random.default_rng(5), cfg, cbet_ctx, cuda)
+    pu = pu[:bo].contiguous()
+    before = gop.LAUNCHES
+    got = gop.gain(pu, rp, inten)
+    assert gop.LAUNCHES == before + 1
+    want = gop.gain_reference(pu, rp, inten)
+    assert float(want.abs().max()) > 0
+    assert rel_l2(got.cpu(), want.cpu()) < 1e-5
+    with pytest.raises(ValueError):
+        gop.gain(pu.transpose(1, 2).contiguous(), rp, inten)
+    with pytest.raises(TypeError):
+        gop.gain(pu.double(), rp, inten)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_gain_window_kernel_matches_plain(cuda, cbet_ctx, dtype, tol):
+    from chip_smoke import smooth_gain, window_case
+    cfg = Config(**CBET_SMALL)
+    gain = smooth_gain(np.random.default_rng(6), cfg, 40.0, dtype, cuda)
+    st, args = window_case(cfg, cbet_ctx, cuda, dtype, 3 * cfg.nt // 8,
+                           gain)
+    before = gdep.LAUNCHES
+    e_k, of_k, g_k, u_k = gdep.deposit_gain_window(
+        torch.zeros(cfg.edep_shape, dtype=dtype, device=cuda), *args)
+    assert gdep.LAUNCHES == before + 1
+    e_p, of_p, g_p, u_p = gdep.deposit_gain_window_reference(
+        torch.zeros(cfg.edep_shape, dtype=dtype, device=cuda), *args)
+    assert int(of_k) == int(of_p) == 0
+    for got, want in ((e_k, e_p), (g_k, g_p), (u_k, u_p)):
+        assert rel_l2(got.cpu(), want.cpu()) < tol
+    thr = cfg.stop_fraction * st.uray_init
+    assert torch.equal(st.alive & (u_k > thr), st.alive & (u_p > thr))
+
+
+@pytest.mark.parametrize("mode", ["lookup", "kernel_cell"])
+def test_cbet_solve_on_card_matches_plain(cuda, cbet_ctx, mode):
+    """The whole solve through the kernels against the same solve through
+    the plain versions on the card (f64; the f32 gain kernel contracts into
+    FMAs, so the fixed points differ at the f32 gain's rounding)."""
+    from cbet_raytracing_3d_tpu_torch.models import cbet
+    cfg = Config(**CBET_SMALL, dtype="float64", cbet_max_iters=3,
+                 cbet_gain_mode=mode)
+    ctx = rt.prepare(cfg)
+    counts = (gop.LAUNCHES, dep.GROUPED_LAUNCHES, gdep.LAUNCHES)
+    got = cbet.cbet_solve(cfg, ctx, cuda)
+    assert gop.LAUNCHES - counts[0] == got.iterations
+    assert dep.GROUPED_LAUNCHES > counts[1]
+    assert (gdep.LAUNCHES > counts[2]) == (mode == "kernel_cell")
+    want = cbet.cbet_solve(cfg, ctx, cuda, ops=cbet.plain_ops())
+    assert got.iterations == want.iterations
+    assert rel_l2(got.edep, want.edep) < 1e-6
+    assert rel_l2(got.intensity, want.intensity) < 1e-6

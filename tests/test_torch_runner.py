@@ -106,7 +106,7 @@ def test_cli_run_and_dump(tmp_path, capsys, port_run):
 
 
 @pytest.mark.parametrize("argv", [
-    ["run", "--cbet"], ["run", "--composed"], ["run", "--checkpoint", "c"],
+    ["run", "--cbet-only"], ["run", "--composed"], ["run", "--checkpoint", "c"],
     ["run", "--resume"], ["run", "--cache-dir", "c"],
     ["run", "--profile-dir", "p"], ["track", "--pairs", "0:1"],
     ["run", "--deposit-backend", "pallas"], ["run", "--parity", "Reference"],
