@@ -15,6 +15,10 @@ Usage examples::
     python -m cbet_raytracing_3d_tpu_torch.cli run --out-dir out \\
         --formats npz,json
     python -m cbet_raytracing_3d_tpu_torch.cli run --cbet --out-dir out
+    python -m cbet_raytracing_3d_tpu_torch.cli run --cbet \\
+        --cbet-gain-mode kernel --cbet-light-iterations true
+    python -m cbet_raytracing_3d_tpu_torch.cli run --cbet \\
+        --cbet-accel anderson --cbet-gain-stride 5
     python -m cbet_raytracing_3d_tpu_torch.cli dump --nbeams 1 > edep.txt
 """
 

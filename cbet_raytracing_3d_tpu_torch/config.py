@@ -72,14 +72,15 @@ class Config:
     cbet_max_iters: int = 30
     cbet_tol: float = 5e-3
     cbet_relax: float = 0.9
-    # "anderson" is an opt-in of ROADMAP M8: check_cbet_config refuses it
+    # "anderson": Anderson(m=1) mixing of the fixed-point iterates (opt-in)
     cbet_accel: Literal["none", "anderson"] = "none"
     machnum: float = k.MACH           # flow Mach number (def.cuh:99)
     ncrossings_mult: int = 3          # ncrossings = mult*nx (def.cuh:96)
-    # > 1 (the window-strided lookup, another model) is refused
+    # 1, or deposit_batch_steps: one gain lookup per deposit window at the
+    # window-entry cell (another model; needs the batched lookup)
     cbet_gain_stride: int = 1
     # "lookup" and "kernel_cell" (the same model); "kernel" (the trilinear
-    # window model, an M8 opt-in) is refused
+    # window model, another model, opt-in)
     cbet_gain_mode: Literal["lookup", "kernel", "kernel_cell"] = "lookup"
     # not read: TPU gather-layout choices of the lookup with identical
     # values (per-beam row slices, value-duplicated 2-wide rows)
@@ -87,7 +88,8 @@ class Config:
     cbet_gain_rows2: bool | None = None
     # not read: the mesh's beam-sharded gain table (ROADMAP M11)
     cbet_gain_sharded: bool | None = None
-    # True (an M8 opt-in) is refused
+    # True: the fixed-point iterations skip the edep deposit and one full
+    # trace follows (needs the batched path); None (auto) and False: off
     cbet_light_iterations: bool | None = None
     cbet_seed_zero_gain: bool = True
     # not read: segment compaction does not change values (ROADMAP M9)
@@ -114,8 +116,9 @@ class Config:
     # boundary exit rows.  tiles_per_block is read only as the padding of
     # the slot layouts (build_tile_layout, models/cbet.live_tile_slots), so
     # slots match the JAX package's one for one; deposit_batch_steps
-    # is the window of cbet_gain_mode="kernel_cell" (the plain trace
-    # deposits every step).
+    # is the window of the CBET trace (the kernel gain modes, and the
+    # lookup where it divides the chunk lengths; the plain trace deposits
+    # every step).
     deposit_box_x: int = 32
     deposit_box_y: int = 32
     deposit_box_z: int = 32

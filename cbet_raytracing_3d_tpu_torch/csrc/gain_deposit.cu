@@ -1,21 +1,30 @@
-// CBET window-gain deposit: the exact entry-cell gain model applied over a
-// window of `batch` steps, with the exact termination rule and the edep
-// deposit of the gained increments.
+// CBET window-gain deposit: a gain model applied over a window of `batch`
+// steps, with the exact termination rule and the edep deposit of the gained
+// increments.
 //
 // Replaces the TPU kernel cbet_raytracing_3d_tpu/ops/pallas_deposit.py::
-// _make_tile_deposit_gain in its "cell" mode (cbet_gain_mode="kernel_cell";
-// the gain branch of _tile_ebox).  The TPU kernel samples the gain table by
-// one-hot matrix products against a VMEM window of the beam's table (with a
-// bf16 hi/lo split to keep f32 values through the MXU) and deposits through
-// the tile box.  Here one thread owns one ray for the whole window, reads
-// its gain with a direct load from the (B, nx*ny*nz) table, carries the
-// cumulative product in a register, and deposits each step with K1's eight
-// atomics (deposit_row.cuh).
+// _make_tile_deposit_gain (the gain branch of _tile_ebox) in its three
+// uses:
+//   "cell" (cbet_gain_mode="kernel_cell"): the gain at each step's ENTRY
+//          cell, the per-step lookup's exact sampling;
+//   "tri"  (cbet_gain_mode="kernel"): the gain sampled trilinearly at each
+//          step's DEPOSIT position, with the deposit's own eight corners and
+//          weights (deposit_row.cuh), ghost nodes reading 0;
+//   gain_only (light CBET iterations, either mode): gamma and uout only,
+//          edep untouched; deposit-corner overflow is still counted.
+// The TPU kernel samples the gain table by matrix products against a VMEM
+// window of the beam's table (one-hot rows in "cell" mode with a bf16 hi/lo
+// split, the deposit's hat matrices in "tri" mode) and deposits through the
+// tile box.  Here one thread owns one ray for the whole window, reads its
+// gain with direct loads from the unpadded (B, nx*ny*nz) table (no padded
+// copy of it is made), carries the cumulative product in a register, and
+// deposits each step with K1's eight atomics.
 //
 // Contract.  Streams are step-major (batch, n_rays): row j*n_rays + r is
 // ray r's step j.  Ray r belongs to beam r / rays_per_group.  For each step
 // j of the window:
-//   g      = gain[beam, (lcx*ny + lcy)*nz + lcz]     (the step's ENTRY cell)
+//   g      = gain[beam, (lcx*ny + lcy)*nz + lcz]           ("cell"), or
+//            sum_c w_c * gain[beam, node_c]                 ("tri")
 //   gcum  *= exp(clamp(g * ds_j, -clip, clip))
 //   u_true = u_nogain_j * gcum
 //   died   = u_true <= stop * uinit[r]
@@ -23,15 +32,20 @@
 //   death step (medep); gamma[j, r] = gcum while no death has happened up to
 //   and including step j (mint), else 0.
 // uout[r] is u_true at the first death step, else at the window's end (the
-// frozen true energy).  A live row (ds != 0) whose entry cell lies outside
-// the grid reads gain 0 and is counted in *overflow, as is a row whose
-// deposit has a corner outside the grid (0 on the trace's clamped cells).
-// This is models/cbet.py:846-916 (the XLA window form) row by row.
+// frozen true energy).  In "cell" mode a live row (ds != 0) whose entry cell
+// lies outside the grid reads gain 0 and is counted in *overflow; in "tri"
+// mode a row whose corners leave the padded grid reads gain 0 (the trace
+// keeps cells clamped, so neither happens there).  A row whose deposit has a
+// corner outside the grid is counted in *overflow, with or without
+// gain_only.  This is models/cbet.py:846-916 (the XLA window form) row by
+// row.
 //
 // What bounds it on the card: the edep atomics (as K1, 8 per live step) and
-// the gain loads, one 4- or 8-byte load per step from a 240 MB (f32) table
-// whose rows neighbouring rays share; the per-ray arithmetic is a few
-// operations and one exp per step.
+// the gain loads from a 240 MB (f32) table whose rows neighbouring rays
+// share: one per step in "cell" mode, eight in "tri" mode (mostly L2 hits,
+// the corners of neighbouring rays overlap).  gain_only drops the atomics
+// and keeps the loads.  The per-ray arithmetic is a few operations and one
+// exp per step.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a into the package's
 // shared library with a plain C interface; bound with ctypes
@@ -49,7 +63,7 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ float exp_t(float x) { return expf(x); }
 __device__ __forceinline__ double exp_t(double x) { return exp(x); }
 
-template <typename T>
+template <typename T, bool kTri, bool kGainOnly>
 __global__ void __launch_bounds__(kThreads)
 gain_window_kernel(T* __restrict__ edep, const int32_t* __restrict__ cx,
                    const int32_t* __restrict__ cy,
@@ -74,13 +88,22 @@ gain_window_kernel(T* __restrict__ edep, const int32_t* __restrict__ cx,
   bool any_prev = false;  // a death at an earlier step of the window
   for (int j = 0; j < batch; ++j) {
     const long long row = (long long)j * n_rays + r;
-    const int x = lcx[row], y = lcy[row], z = lcz[row];
     const T dsj = ds[row];
+    // the deposit corners: read up front in "tri" mode (they are the
+    // sampling corners), only for a row that deposits in "cell" mode
+    cbet::Corners<T> c;
     T g = T(0);
-    if (x >= 0 && x < nx && y >= 0 && y < ny && z >= 0 && z < nz) {
-      g = g_row[((long long)x * ny + y) * nz + z];
-    } else if (dsj != T(0)) {
-      atomicAdd(overflow, 1);
+    if (kTri) {
+      c = cbet::row_corners(cx[row], cy[row], cz[row], fx[row], fy[row],
+                            fz[row], nxp, nyp, nzp);
+      if (c.ok) g = cbet::sample_corners(g_row, c, nx, ny, nz);
+    } else {
+      const int x = lcx[row], y = lcy[row], z = lcz[row];
+      if (x >= 0 && x < nx && y >= 0 && y < ny && z >= 0 && z < nz) {
+        g = g_row[((long long)x * ny + y) * nz + z];
+      } else if (dsj != T(0)) {
+        atomicAdd(overflow, 1);
+      }
     }
     T a = g * dsj;
     a = a < -clip ? -clip : (a > clip ? clip : a);
@@ -93,13 +116,36 @@ gain_window_kernel(T* __restrict__ edep, const int32_t* __restrict__ cx,
     if (!any_prev) {
       const T v = inc[row] * gcum;
       if (v != T(0)) {
-        cbet::deposit_row(edep, cx[row], cy[row], cz[row], fx[row], fy[row],
-                          fz[row], v, nxp, nyp, nzp, overflow);
+        if (!kTri) {
+          c = cbet::row_corners(cx[row], cy[row], cz[row], fx[row], fy[row],
+                                fz[row], nxp, nyp, nzp);
+        }
+        if (!c.ok) {
+          atomicAdd(overflow, 1);
+        } else if (!kGainOnly) {
+          cbet::deposit_corners(edep, c, v, nyp, nzp);
+        }
       }
     }
     any_prev = any_now;
   }
   uout[r] = any_prev ? uo : u_true;
+}
+
+template <typename T, bool kTri, bool kGainOnly>
+void enqueue(long long blocks, cudaStream_t stream, T* edep,
+             const int32_t* cx, const int32_t* cy, const int32_t* cz,
+             const T* fx, const T* fy, const T* fz, const T* inc, const T* ds,
+             const T* u_nogain, const T* uinit, const int32_t* lcx,
+             const int32_t* lcy, const int32_t* lcz, const T* gain,
+             long long n_rays, long long rays_per_group, int batch, int nx,
+             int ny, int nz, T clip, T stop, int* overflow, T* gamma,
+             T* uout) {
+  gain_window_kernel<T, kTri, kGainOnly>
+      <<<(unsigned int)blocks, kThreads, 0, stream>>>(
+          edep, cx, cy, cz, fx, fy, fz, inc, ds, u_nogain, uinit, lcx, lcy,
+          lcz, gain, n_rays, rays_per_group, batch, nx, ny, nz, clip, stop,
+          overflow, gamma, uout);
 }
 
 template <typename T>
@@ -109,18 +155,24 @@ int launch(void* edep, const void* cx, const void* cy, const void* cz,
            const void* lcx, const void* lcy, const void* lcz,
            const void* gain, long long n_rays, long long rays_per_group,
            int batch, int nx, int ny, int nz, double clip, double stop,
-           void* overflow, void* gamma, void* uout, void* stream) {
+           int tri, int gain_only, void* overflow, void* gamma, void* uout,
+           void* stream) {
   if (n_rays <= 0 || batch <= 0) return (int)cudaSuccess;
   if (rays_per_group <= 0) return (int)cudaErrorInvalidValue;
+  if (!tri && (lcx == nullptr || lcy == nullptr || lcz == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const long long blocks = (n_rays + kThreads - 1) / kThreads;
-  gain_window_kernel<T><<<(unsigned int)blocks, kThreads, 0,
-                          (cudaStream_t)stream>>>(
-      (T*)edep, (const int32_t*)cx, (const int32_t*)cy, (const int32_t*)cz,
-      (const T*)fx, (const T*)fy, (const T*)fz, (const T*)inc, (const T*)ds,
-      (const T*)u_nogain, (const T*)uinit, (const int32_t*)lcx,
-      (const int32_t*)lcy, (const int32_t*)lcz, (const T*)gain, n_rays,
-      rays_per_group, batch, nx, ny, nz, (T)clip, (T)stop, (int*)overflow,
-      (T*)gamma, (T*)uout);
+  decltype(&enqueue<T, true, true>) kernel =
+      tri ? (gain_only ? &enqueue<T, true, true> : &enqueue<T, true, false>)
+          : (gain_only ? &enqueue<T, false, true>
+                       : &enqueue<T, false, false>);
+  kernel(blocks, (cudaStream_t)stream, (T*)edep, (const int32_t*)cx,
+         (const int32_t*)cy, (const int32_t*)cz, (const T*)fx, (const T*)fy,
+         (const T*)fz, (const T*)inc, (const T*)ds, (const T*)u_nogain,
+         (const T*)uinit, (const int32_t*)lcx, (const int32_t*)lcy,
+         (const int32_t*)lcz, (const T*)gain, n_rays, rays_per_group, batch,
+         nx, ny, nz, (T)clip, (T)stop, (int*)overflow, (T*)gamma, (T*)uout);
   return (int)cudaGetLastError();
 }
 
@@ -130,7 +182,9 @@ extern "C" {
 
 // Each entry enqueues one launch on `stream` and returns cudaGetLastError():
 // nonzero means the launch was refused.  No synchronization, no allocation.
-// `clip` and `stop` arrive as doubles and are rounded to T once.
+// `clip` and `stop` arrive as doubles and are rounded to T once.  `tri`
+// selects the "tri" sampling (the lag-cell pointers may then be null),
+// `gain_only` leaves edep untouched.
 int cbet_gain_window_f32(void* edep, const void* cx, const void* cy,
                          const void* cz, const void* fx, const void* fy,
                          const void* fz, const void* inc, const void* ds,
@@ -138,12 +192,13 @@ int cbet_gain_window_f32(void* edep, const void* cx, const void* cy,
                          const void* lcx, const void* lcy, const void* lcz,
                          const void* gain, long long n_rays,
                          long long rays_per_group, int batch, int nx, int ny,
-                         int nz, double clip, double stop, void* overflow,
-                         void* gamma, void* uout, void* stream) {
+                         int nz, double clip, double stop, int tri,
+                         int gain_only, void* overflow, void* gamma,
+                         void* uout, void* stream) {
   return launch<float>(edep, cx, cy, cz, fx, fy, fz, inc, ds, u_nogain,
                        uinit, lcx, lcy, lcz, gain, n_rays, rays_per_group,
-                       batch, nx, ny, nz, clip, stop, overflow, gamma, uout,
-                       stream);
+                       batch, nx, ny, nz, clip, stop, tri, gain_only,
+                       overflow, gamma, uout, stream);
 }
 
 int cbet_gain_window_f64(void* edep, const void* cx, const void* cy,
@@ -153,12 +208,13 @@ int cbet_gain_window_f64(void* edep, const void* cx, const void* cy,
                          const void* lcx, const void* lcy, const void* lcz,
                          const void* gain, long long n_rays,
                          long long rays_per_group, int batch, int nx, int ny,
-                         int nz, double clip, double stop, void* overflow,
-                         void* gamma, void* uout, void* stream) {
+                         int nz, double clip, double stop, int tri,
+                         int gain_only, void* overflow, void* gamma,
+                         void* uout, void* stream) {
   return launch<double>(edep, cx, cy, cz, fx, fy, fz, inc, ds, u_nogain,
                         uinit, lcx, lcy, lcz, gain, n_rays, rays_per_group,
-                        batch, nx, ny, nz, clip, stop, overflow, gamma, uout,
-                        stream);
+                        batch, nx, ny, nz, clip, stop, tri, gain_only,
+                        overflow, gamma, uout, stream);
 }
 
 }  // extern "C"

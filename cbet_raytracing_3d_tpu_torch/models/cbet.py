@@ -8,21 +8,29 @@ change drops below ``cbet_tol``.
 * The host part (``pair_couplings``, ``gain_prefactor_field``,
   ``_node_rhat``, ``_interp_matrix``, ``live_tile_slots``) is float64 NumPy,
   bit-identical to the JAX functions.
-* The gain reduction is ``ops/gain.py`` (kernel K3), the per-beam intensity
-  deposit ``ops/deposit.deposit_grouped`` (K2), and in
-  ``cbet_gain_mode="kernel_cell"`` the window-gain deposit
-  ``ops/gain_deposit.py`` (K4).  The step physics, the per-step gain lookup
-  and the upsampling of a coarse gain grid are plain torch, as they are XLA
-  in the JAX package.
-* The two gain modes are one model: "lookup" multiplies each step's energy
-  by ``exp(clip(g * ds))`` with ``g`` looked up at the step's entry cell;
-  "kernel_cell" advances a window of ``deposit_batch_steps`` steps without
-  gain and applies the same factors afterwards (cumulative product, exact
-  termination), equal to the lookup to rounding.
+* The gain reduction is ``ops/gain.py`` (kernel K3), the edep deposit
+  ``ops/deposit.deposit`` (K1), the per-beam intensity deposit
+  ``ops/deposit.deposit_grouped`` (K2), and in the kernel gain modes the
+  window-gain deposit ``ops/gain_deposit.py`` (K4, "cell" or "tri", with
+  its gain-only form in light iterations).  The step physics, the gain
+  lookup and the upsampling of a coarse gain grid are plain torch, as they
+  are XLA in the JAX package.
+* "lookup" multiplies each step's energy by ``exp(clip(g * ds))`` with
+  ``g`` looked up at the step's entry cell (or once per deposit window at
+  the window-entry cell: ``cbet_gain_stride``); "kernel_cell" advances a
+  window of ``deposit_batch_steps`` steps without gain and applies the same
+  factors afterwards (cumulative product, exact termination), equal to the
+  lookup to rounding; "kernel" does the same with the gain sampled
+  trilinearly at each step's deposit position (another model).
+* Where ``deposit_batch_steps`` divides the chunk lengths, the lookup mode
+  advances a whole window before one K1 and one K2 call on its step-major
+  rows, as the JAX Pallas path does; otherwise it deposits every step.
+* Opt-ins: light iterations (the fixed-point iterations skip the edep
+  deposit; one full trace with the last gain makes edep) and Anderson(m=1)
+  mixing of the intensity iterates.
 
 Not here (ROADMAP): segment compaction (M9; ``cbet_segmented`` does not
-change values), the mesh solve (M11), and the opt-in models that raise
-``NotImplementedError`` in :func:`check_cbet_config`.
+change values) and the mesh solve (M11).
 """
 
 from __future__ import annotations
@@ -48,7 +56,8 @@ from . import raytracer as rt
 # identical or the two modes compute different models.
 GAIN_CLIP = 0.1
 
-GAIN_MODES = ("lookup", "kernel_cell")
+GAIN_MODES = ("lookup", "kernel", "kernel_cell")
+ACCELS = ("none", "anderson")
 
 
 @dataclasses.dataclass
@@ -187,26 +196,29 @@ def live_tile_slots(cfg: Config, ctx: rt.TraceContext) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class CbetOps:
-    """The four kernel entry points a CBET solve calls: :func:`kernel_ops`
-    (the wrappers: the kernels for CUDA tensors, the plain versions for CPU
+    """The kernel entry points a CBET solve calls: :func:`kernel_ops` (the
+    wrappers: the kernels for CUDA tensors, the plain versions for CPU
     tensors) or :func:`plain_ops` (the plain versions, to time or compare
     the kernels against them)."""
 
     deposit: Callable         # K1, the edep deposit (lookup mode)
     grouped: Callable         # K2, the per-beam intensity deposit
-    window: Callable          # K4, the window-gain deposit (kernel_cell)
+    window: Callable          # K4 "cell", the window-gain deposit
+    tri: Callable             # K4 "tri" (cbet_gain_mode="kernel")
     gain: Callable            # K3, the gain reduction
 
 
 def kernel_ops() -> CbetOps:
     return CbetOps(dep_ops.deposit, dep_ops.deposit_grouped,
-                   gd_ops.deposit_gain_window, gain_ops.gain)
+                   gd_ops.deposit_gain_window, gd_ops.deposit_gain_window_tri,
+                   gain_ops.gain)
 
 
 def plain_ops() -> CbetOps:
     return CbetOps(dep_ops.deposit_reference,
                    dep_ops.deposit_grouped_reference,
                    gd_ops.deposit_gain_window_reference,
+                   gd_ops.deposit_gain_window_tri_reference,
                    gain_ops.gain_reference)
 
 
@@ -219,31 +231,62 @@ def resolve_cbet_ops(cfg: Config, device) -> CbetOps:
     return kernel_ops()
 
 
+def _chunks(cfg: Config) -> tuple[int, int, int]:
+    """``(chunk, n_chunks, last_chunk)``: the trace's chunk lengths."""
+    chunk = max(1, min(cfg.chunk_steps, cfg.nt))
+    n_chunks = -(-cfg.nt // chunk)
+    return chunk, n_chunks, cfg.nt - (n_chunks - 1) * chunk
+
+
+def batched(cfg: Config) -> bool:
+    """Whether the CBET trace advances whole windows of
+    ``deposit_batch_steps`` steps between deposits: the batch is > 1 and
+    divides both chunk lengths (``models/cbet.py:491-494``)."""
+    chunk, _, last = _chunks(cfg)
+    b = cfg.deposit_batch_steps
+    return b > 1 and not (chunk % b or last % b)
+
+
 def check_cbet_config(cfg: Config) -> None:
-    """Refuse the CBET switches this port does not run.  Each of them picks
-    a different computation; running the default instead would silently
-    compute something else."""
-    if cfg.cbet_gain_mode == "kernel":
-        raise NotImplementedError(
-            "cbet_gain_mode='kernel' (the trilinear window model, an opt-in "
-            "of ROADMAP M8) is not ported; use 'lookup' or 'kernel_cell'")
+    """The JAX package's rules for the CBET switches
+    (``models/cbet.py:498-532``, single device): a switch this configuration
+    cannot run raises ``ValueError``, since running another model instead
+    would silently compute something else."""
     if cfg.cbet_gain_mode not in GAIN_MODES:
         raise ValueError(f"unknown cbet_gain_mode {cfg.cbet_gain_mode!r} "
                          f"(expected one of {GAIN_MODES})")
-    if cfg.cbet_light_iterations:
-        raise NotImplementedError(
-            "cbet_light_iterations=True (ROADMAP M8 opt-in) is not ported")
-    if cfg.cbet_accel != "none":
-        raise NotImplementedError(
-            f"cbet_accel={cfg.cbet_accel!r} (ROADMAP M8 opt-in) is not "
-            "ported")
-    if cfg.cbet_gain_stride > 1:
-        raise NotImplementedError(
-            "cbet_gain_stride > 1 (the window-strided gain lookup) is not "
-            "ported (ROADMAP M8)")
-    if cfg.cbet_gain_stride != 1:
-        raise ValueError(f"cbet_gain_stride must be 1, got "
-                         f"{cfg.cbet_gain_stride}")
+    if cfg.cbet_accel not in ACCELS:
+        raise ValueError(f"unknown cbet_accel {cfg.cbet_accel!r} (expected "
+                         f"one of {ACCELS})")
+    win = batched(cfg)
+    if cfg.cbet_gain_stride not in (1, cfg.deposit_batch_steps):
+        raise ValueError(
+            f"cbet_gain_stride must be 1 or deposit_batch_steps "
+            f"(={cfg.deposit_batch_steps}), got {cfg.cbet_gain_stride}")
+    if cfg.cbet_gain_stride > 1 and not win:
+        raise ValueError(
+            "cbet_gain_stride > 1 requires the batched deposit path "
+            "(deposit_batch_steps dividing the chunk lengths) — this "
+            "configuration would silently run the exact per-step model "
+            "instead")
+    if cfg.cbet_gain_mode != "lookup":
+        # the window-gain deposit's window IS the deposit batch
+        if cfg.cbet_gain_stride != 1:
+            raise ValueError(
+                f"cbet_gain_mode={cfg.cbet_gain_mode!r} subsumes gain "
+                "striding — set cbet_gain_stride=1")
+        if not win:
+            chunk, _, last = _chunks(cfg)
+            raise ValueError(
+                f"cbet_gain_mode={cfg.cbet_gain_mode!r} requires "
+                "deposit_batch_steps > 1 dividing the chunk lengths "
+                f"({chunk}, {last}); got {cfg.deposit_batch_steps} (the "
+                "window model is defined per deposit window)")
+    if cfg.cbet_light_iterations and not win:
+        raise ValueError(
+            "cbet_light_iterations=True (edep_skip) requires a batched "
+            "deposit path: deposit_batch_steps > 1 dividing the chunk "
+            "lengths")
 
 
 def _path_element(state: rt.RayState, d) -> torch.Tensor:
@@ -259,18 +302,20 @@ def _inv_cdt(cfg: Config) -> float:
 
 
 def make_window_advance(cfg: Config):
-    """``advance(state, field4) -> (state, streams)``: one kernel_cell
-    window of ``deposit_batch_steps`` steps WITHOUT gain and without the
-    energy stop rule (``mini_nogain``, ``models/cbet.py:698-719``).
+    """``advance(state, field4) -> (state, streams)``: one window of
+    ``deposit_batch_steps`` steps of the kernel gain modes WITHOUT gain and
+    without the energy stop rule (``mini_nogain``,
+    ``models/cbet.py:698-719``).
 
     ``streams`` holds step-major (batch, N) tensors: the deposit rows
     ``cx cy cz fx fy fz inc``, the path element ``ds`` (0 on dead rays), the
     gain-free intensity contribution ``contrib0`` (post-step alive mask) and
     the gain-free post-step energy ``u_nogain``; and the entry cells
-    ``lcx lcy lcz`` — the window-entry cell for step 0, else the post-step
-    cell of the step before (``models/cbet.py:825-827``).  Rays that die by
-    energy mid-window keep stepping: the window-gain deposit applies the
-    exact rule, and no output reads their window-end positions."""
+    ``lcx lcy lcz`` of the "cell" sampling — the window-entry cell for step
+    0, else the post-step cell of the step before
+    (``models/cbet.py:825-827``).  Rays that die by energy mid-window keep
+    stepping: the window-gain deposit applies the exact rule, and no output
+    reads their window-end positions."""
     step_win = rt.make_deferred_step_fn(cfg.replace(stop_fraction=0.0))
     batch = cfg.deposit_batch_steps
     d = (cfg.dx, cfg.dy, cfg.dz)
@@ -298,7 +343,7 @@ def make_window_advance(cfg: Config):
 
 def make_cbet_trace_fn(cfg: Config, ctx: rt.TraceContext,
                        tiles_per_group: int | None = None,
-                       ops: CbetOps | None = None):
+                       ops: CbetOps | None = None, light: bool = False):
     """The gain-coupled trace (``models/cbet.py:364``, single device):
     ``trace(field4, gain (B, P), bid (N,), state0) -> (edep, inodes (B, Ph),
     state, overflow, steps)``.
@@ -313,7 +358,12 @@ def make_cbet_trace_fn(cfg: Config, ctx: rt.TraceContext,
     crop.  The trace stops at the first chunk boundary where no ray is alive
     (one host sync per chunk); ``steps`` counts the steps executed.
     ``ops`` overrides the kernel entry points (default: resolved from
-    ``cfg.deposit_backend`` and the device of ``state0``)."""
+    ``cfg.deposit_backend`` and the device of ``state0``).
+
+    ``light`` builds the light-iteration trace (``edep_skip``,
+    ``models/cbet.py:1441-1459``): the same state and intensity, no edep
+    deposit (the returned edep is zeros; the kernel modes call the window
+    kernel's gain-only form); it needs the batched path."""
     check_cbet_config(cfg)
     nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
     s = cfg.cbet_grid_downsample
@@ -323,18 +373,17 @@ def make_cbet_trace_fn(cfg: Config, ctx: rt.TraceContext,
     tpg = (tiles_per_group if tiles_per_group is not None
            else ctx.layout.tiles_per_beam)
     rays_per_group = tpg * ctx.layout.rays_per_tile
-    chunk = max(1, min(cfg.chunk_steps, cfg.nt))
-    n_chunks = -(-cfg.nt // chunk)
-    last_chunk = cfg.nt - (n_chunks - 1) * chunk
-    kernel_cell = cfg.cbet_gain_mode == "kernel_cell"
-    batch = cfg.deposit_batch_steps
-    if kernel_cell and (batch <= 1 or chunk % batch or last_chunk % batch):
-        # the window model is defined per deposit window (models/cbet.py:
-        # 509-519): fail loud rather than run another model
+    chunk, n_chunks, _ = _chunks(cfg)
+    kernel_gain = cfg.cbet_gain_mode != "lookup"
+    tri = cfg.cbet_gain_mode == "kernel"
+    # check_cbet_config made sure the kernel modes and the strided lookup
+    # have whole windows; the lookup takes them wherever they fit
+    batch = cfg.deposit_batch_steps if batched(cfg) else 1
+    if light and batch <= 1:
         raise ValueError(
-            "cbet_gain_mode='kernel_cell' requires deposit_batch_steps > 1 "
-            f"dividing the chunk lengths ({chunk}, {last_chunk}); got "
-            f"{batch}")
+            "edep_skip (light CBET iterations) requires a batched deposit "
+            "path: deposit_batch_steps > 1 dividing the chunk lengths")
+    strided = cfg.cbet_gain_stride > 1
     step = rt.make_deferred_step_fn(cfg)
     advance = make_window_advance(cfg)
     stop_frac = cfg.stop_fraction
@@ -354,36 +403,57 @@ def make_cbet_trace_fn(cfg: Config, ctx: rt.TraceContext,
                    * (1.0 / s) for a in range(3))
         return ch, fh
 
-    def lookup_step(state, edep, ib, field4, gain_flat, bid_off, o):
-        # the gain at the step's entry cell along this step's path element
-        # (models/cbet.py:782-799), then the step and its edep deposit
-        ds = _path_element(state, d)
+    def lookup_gain(state, gain_flat, bid_off):
         cx, cy, cz = state.cell
         flat = (cx.to(torch.int64) * ny + cy) * nz + cz
-        g = gain_flat.index_select(0, bid_off + flat)
-        factor = torch.exp(torch.clamp(g * ds, -GAIN_CLIP, GAIN_CLIP))
-        state = dataclasses.replace(
-            state, uray=torch.where(state.alive, state.uray * factor,
-                                    state.uray))
-        state, (cell, frac, inc) = step(state, field4)
-        edep, of = o.deposit(edep, *cell, *frac, inc)
-        # per-beam intensity: uray * |v| / c on the post-step alive mask
-        # (models/cbet.py:918-942)
-        contrib = torch.where(state.alive, state.uray * (ds * inv_cdt), 0.0)
-        icell, ifrac = to_coarse(state.cell, state.frac)
-        ib, of_i = o.grouped(ib, *icell, *ifrac, contrib, rays_per_group)
-        return state, edep, ib, of + of_i
+        return gain_flat.index_select(0, bid_off + flat)
+
+    def lookup_window(state, edep, ib, field4, gain_flat, bid_off, o):
+        # models/cbet.py:944-983 (the per-step form :918-942 at batch 1):
+        # each step's energy gains exp(clip(g * ds)) along its path element,
+        # g at its entry cell (or at the window-entry cell for the whole
+        # window: cbet_gain_stride); then one edep deposit (none in a light
+        # iteration) and one intensity deposit of the step-major rows.  The
+        # intensity is uray * |v| / c on the post-step alive mask.
+        g_win = lookup_gain(state, gain_flat, bid_off) if strided else None
+        rows = []
+        for _ in range(batch):
+            ds = _path_element(state, d)
+            g = g_win if strided else lookup_gain(state, gain_flat, bid_off)
+            factor = torch.exp(torch.clamp(g * ds, -GAIN_CLIP, GAIN_CLIP))
+            state = dataclasses.replace(
+                state, uray=torch.where(state.alive, state.uray * factor,
+                                        state.uray))
+            state, (cell, frac, inc) = step(state, field4)
+            contrib = torch.where(state.alive, state.uray * (ds * inv_cdt),
+                                  0.0)
+            rows.append((*cell, *frac, inc, contrib))
+        cx, cy, cz, fx, fy, fz, inc, contrib = (torch.cat(a)
+                                                for a in zip(*rows))
+        icell, ifrac = to_coarse((cx, cy, cz), (fx, fy, fz))
+        ib, of = o.grouped(ib, *icell, *ifrac, contrib, rays_per_group,
+                           state.n)
+        if not light:
+            edep, of_e = o.deposit(edep, cx, cy, cz, fx, fy, fz, inc)
+            of = of + of_e
+        return state, edep, ib, of
 
     def window_step(state, edep, ib, field4, gain, o):
         # models/cbet.py:801-916: `batch` steps without gain, then the
-        # window-gain deposit (gain at each step's entry cell, exact
-        # termination, edep) and the intensity of the whole window
+        # window-gain deposit (gain at each step's entry cell or trilinear
+        # at its deposit position, exact termination, edep unless light)
+        # and the intensity of the whole window
         st, w = advance(state, field4)
         cell, frac = (w["cx"], w["cy"], w["cz"]), (w["fx"], w["fy"], w["fz"])
-        edep, of_e, gamma, uout = o.window(
-            edep, *cell, *frac, w["inc"], w["ds"], w["u_nogain"],
-            st.uray_init, w["lcx"], w["lcy"], w["lcz"], gain, rays_per_group,
-            GAIN_CLIP, stop_frac)
+        rows = (*cell, *frac, w["inc"], w["ds"], w["u_nogain"], st.uray_init)
+        if tri:
+            edep, of_e, gamma, uout = o.tri(
+                edep, *rows, gain, rays_per_group, GAIN_CLIP, stop_frac,
+                gain_only=light)
+        else:
+            edep, of_e, gamma, uout = o.window(
+                edep, *rows, w["lcx"], w["lcy"], w["lcz"], gain,
+                rays_per_group, GAIN_CLIP, stop_frac, gain_only=light)
         contrib = (w["contrib0"] * gamma).reshape(-1)
         icell, ifrac = to_coarse(cell, frac)
         ib, of_i = o.grouped(ib, *(a.reshape(-1) for a in icell),
@@ -414,18 +484,17 @@ def make_cbet_trace_fn(cfg: Config, ctx: rt.TraceContext,
             n_steps = min(chunk, cfg.nt - ci * chunk)
             edep = torch.zeros(shape3, dtype=dtype, device=device)
             ib = torch.zeros(ishape, dtype=dtype, device=device)
-            if kernel_cell:
-                for _ in range(n_steps // batch):
+            for _ in range(n_steps // batch):
+                if kernel_gain:
                     state, edep, ib, of = window_step(state, edep, ib,
                                                       field4, gain, o)
-                    oflow += of
-            else:
-                for _ in range(n_steps):
-                    state, edep, ib, of = lookup_step(state, edep, ib, field4,
-                                                      gain_flat, bid_off, o)
-                    oflow += of
+                else:
+                    state, edep, ib, of = lookup_window(
+                        state, edep, ib, field4, gain_flat, bid_off, o)
+                oflow += of
             steps += n_steps
-            master += edep.to(master_dtype)
+            if not light:
+                master += edep.to(master_dtype)
             imaster += ib
         # crop the ghosts -> per-beam node fields on the CBET grid
         inodes = imaster[:, 1:-1, 1:-1, 1:-1].reshape(nb, hx * hy * hz)
@@ -454,6 +523,9 @@ class _CbetSolver:
     gain_fn: Any
     upsample: Any
     trace: Any                 # gain (B, P) -> (edep, inodes, state, steps)
+    # the same without the edep deposit, for the fixed-point iterations
+    # (cbet_light_iterations; None when off)
+    trace_light: Any
     state0: rt.RayState
     bid: torch.Tensor
     make_zero_gain: Any        # () -> (B, P) zeros; a factory, not a buffer
@@ -499,12 +571,22 @@ def _build_solver(cfg: Config, ctx: rt.TraceContext, device,
     state0 = state0.to(device)
     bid_t = torch.from_numpy(bid).to(device)
     field4 = ctx.field4.to(device)
-    fn = make_cbet_trace_fn(cfg, ctx, tiles_per_group=tpg, ops=ops)
 
-    def trace(gain):
-        edep, inodes, st, of, steps = fn(field4, gain, bid_t, state0)
-        rt.check_overflow(int(of), cfg)
-        return edep, inodes, st, steps
+    def checked(fn):
+        def trace(gain):
+            edep, inodes, st, of, steps = fn(field4, gain, bid_t, state0)
+            rt.check_overflow(int(of), cfg)
+            return edep, inodes, st, steps
+        return trace
+
+    trace = checked(make_cbet_trace_fn(cfg, ctx, tiles_per_group=tpg,
+                                       ops=ops))
+    # light iterations (models/cbet.py:1441-1459): an opt-in because the
+    # final full trace costs one more trace than the deposits it skips save
+    # where the deposits are a small share of the trace
+    trace_light = (checked(make_cbet_trace_fn(cfg, ctx, tiles_per_group=tpg,
+                                              ops=ops, light=True))
+                   if cfg.cbet_light_iterations else None)
 
     def make_zero_gain():
         return torch.zeros((cfg.nbeams, cfg.nx * cfg.ny * cfg.nz),
@@ -513,8 +595,32 @@ def _build_solver(cfg: Config, ctx: rt.TraceContext, device,
     upsample = (make_gain_upsampler(cfg, device)
                 if cfg.cbet_grid_downsample > 1 else (lambda g: g))
     return _CbetSolver(gain_fn=make_gain_fn(cfg, ctx, device, ops.gain),
-                       upsample=upsample, trace=trace, state0=state0,
-                       bid=bid_t, make_zero_gain=make_zero_gain)
+                       upsample=upsample, trace=trace,
+                       trace_light=trace_light, state0=state0, bid=bid_t,
+                       make_zero_gain=make_zero_gain)
+
+
+def _accel_next(i_new, i_old, prev_x, prev_f, relax: float):
+    """A later Anderson(m=1) update (``models/cbet.py:1501-1516``): the
+    relaxed step minus the least-squares secant correction
+    ``gamma * (dx + relax * df)``.  The dot products run on the residuals
+    divided by the scale (gamma does not change, and squared raw residuals
+    overflow float32 at large intensities); gamma is 0 on a degenerate
+    secant and clipped to [-2, 2]."""
+    f = i_new - i_old
+    delta = f.abs().max()
+    scale = i_old.abs().max()
+    tiny = torch.finfo(f.dtype).tiny
+    s = torch.clamp(scale, min=tiny)
+    fs = (f / s).reshape(-1)
+    dfs = ((f - prev_f) / s).reshape(-1)
+    den = torch.dot(dfs, dfs)
+    gamma = torch.where(den > 0,
+                        torch.dot(fs, dfs) / torch.clamp(den, min=tiny), 0.0)
+    gamma = torch.clamp(gamma, -2.0, 2.0)
+    x_next = (i_old + relax * f) - gamma * ((i_old - prev_x)
+                                            + relax * (f - prev_f))
+    return delta, scale, x_next, f
 
 
 def _sync(device) -> None:
@@ -532,9 +638,14 @@ def cbet_solve(cfg: Config, ctx: rt.TraceContext, device=None,
 
     The gain is computed in float32 even in a float64 solve and cast back
     to the ray dtype.  Iteration 0 (zero gain) is memoized in the cached
-    solver when ``cbet_seed_zero_gain`` allows.  The stats carry the JAX
-    solve's keys plus the per-iteration gain/trace/update seconds (each
-    ends in a device synchronize) and the steps of every trace."""
+    solver when ``cbet_seed_zero_gain`` allows.  With
+    ``cbet_light_iterations`` the iterations run the light trace and one
+    full trace with the last gain makes edep and the final state (the same
+    values as the full solve).  ``cbet_accel="anderson"`` mixes the
+    iterates by Anderson(m=1) instead of the plain relaxed step.  The stats
+    carry the JAX solve's keys plus the per-iteration gain/trace/update
+    seconds (each ends in a device synchronize), the steps of every trace
+    (the final full trace last) and the final trace's seconds."""
     check_cbet_config(cfg)
     device = torch.device(device) if device is not None \
         else rt.default_device()
@@ -543,6 +654,8 @@ def cbet_solve(cfg: Config, ctx: rt.TraceContext, device=None,
     hx, hy, hz = cfg.cbet_grid_shape
     gain_dtype = getattr(torch, cfg.dtype)
 
+    trace_it = solver.trace_light or solver.trace
+    gain_last = solver.make_zero_gain()
     seed_ok = cfg.cbet_seed_zero_gain and cfg.cbet_max_iters >= 1
     seeded = seed_ok and solver.seed_intensity is not None
     trace_steps = []
@@ -551,7 +664,7 @@ def cbet_solve(cfg: Config, ctx: rt.TraceContext, device=None,
         intensity = solver.seed_intensity
         edep = state = None
     else:
-        edep, intensity, state, steps = solver.trace(solver.make_zero_gain())
+        edep, intensity, state, steps = trace_it(gain_last)
         trace_steps.append(steps)
         if seed_ok:
             solver.seed_intensity = intensity
@@ -562,18 +675,28 @@ def cbet_solve(cfg: Config, ctx: rt.TraceContext, device=None,
              "iter_trace_seconds": [], "iter_update_seconds": []}
     converged = False
     it = 0
+    accel = cfg.cbet_accel == "anderson"
+    prev_x = prev_f = None
+    relax = float(cfg.cbet_relax)
     for it in range(1, cfg.cbet_max_iters + 1):
         t0 = time.perf_counter()
         gain = solver.upsample(solver.gain_fn(intensity.to(torch.float32))
                                ).to(gain_dtype)
         _sync(device)
         t1 = time.perf_counter()
-        edep, i_new, state, steps = solver.trace(gain)
+        gain_last = gain
+        edep, i_new, state, steps = trace_it(gain)
         trace_steps.append(steps)
         _sync(device)
         t2 = time.perf_counter()
-        d_dev, s_dev, blended = _step_update(i_new, intensity,
-                                             float(cfg.cbet_relax))
+        if prev_f is None:
+            # the plain step, and the first Anderson update bit for bit
+            # (models/cbet.py:1494-1499): its residual seeds the history
+            d_dev, s_dev, blended = _step_update(i_new, intensity, relax)
+            f_cur = i_new - intensity if accel else None
+        else:
+            d_dev, s_dev, blended, f_cur = _accel_next(
+                i_new, intensity, prev_x, prev_f, relax)
         delta = float(d_dev) / max(float(s_dev), 1e-300)
         t3 = time.perf_counter()
         history.append(delta)
@@ -587,7 +710,22 @@ def cbet_solve(cfg: Config, ctx: rt.TraceContext, device=None,
             intensity = i_new
             converged = True
             break
+        if accel:
+            # the secant history: the pre-update iterate and its residual
+            prev_x, prev_f = intensity, f_cur
         intensity = blended
+
+    final_seconds = None
+    if solver.trace_light is not None:
+        # the final full trace with the last executed iteration's gain: the
+        # edep and state of the full solve (models/cbet.py:1673-1681)
+        t0 = time.perf_counter()
+        edep, _, state, steps = solver.trace(gain_last)
+        trace_steps.append(steps)
+        _sync(device)
+        final_seconds = time.perf_counter() - t0
+        if verbose:
+            print(f"cbet final edep trace {final_seconds:.2f}s", flush=True)
 
     tf = time.perf_counter()
     stats = rt.trace_stats(ctx, state, solver.state0)
@@ -597,11 +735,11 @@ def cbet_solve(cfg: Config, ctx: rt.TraceContext, device=None,
     stats["result_fetch_seconds"] = time.perf_counter() - tf
     stats["intensity_mode"] = "grouped"      # the per-beam grouped deposit
     # the JAX solve's keys for what this port does not run (segment
-    # compaction, the mesh's sharded gain, light iterations) are written
-    # with the values this solve had, so the outputs keep one schema
+    # compaction, the mesh's sharded gain) are written with the values this
+    # solve had, so the outputs keep one schema
     stats["segmented"] = False
     stats["gain_sharded"] = False
-    stats["light_iterations"] = False
+    stats["light_iterations"] = solver.trace_light is not None
     stats["gain_mode"] = cfg.cbet_gain_mode
     stats["gain_rows2"] = cfg.cbet_gain_rows2
     stats["relax"] = cfg.cbet_relax
@@ -611,6 +749,7 @@ def cbet_solve(cfg: Config, ctx: rt.TraceContext, device=None,
     stats["iter0_seconds"] = iter0_seconds
     stats["seeded_zero_gain"] = bool(seeded)
     stats["trace_steps"] = trace_steps
+    stats["final_trace_seconds"] = final_seconds
     stats["device"] = str(device)
     return CbetResult(edep=edep_h, intensity=inten_h, iterations=it,
                       converged=converged, history=history, stats=stats)

@@ -1,47 +1,60 @@
-"""CBET window-gain deposit: the CUDA kernel and its plain PyTorch version.
+"""CBET window-gain deposit: the CUDA kernel and its plain PyTorch versions.
 
 Counterpart of ``cbet_raytracing_3d_tpu/ops/pallas_deposit.py::
-_make_tile_deposit_gain`` in its "cell" mode (``cbet_gain_mode=
-"kernel_cell"``), with the plain version transcribing the JAX package's XLA
-window form (``models/cbet.py:846-916``): the gain lookup at each step's
-entry cell, ``cumprod``, ``cummax``, and a per-step ``index_add_``.  The
-kernel is ``csrc/gain_deposit.cu``; its header states the contract row by
-row and what bounds it on the card.
+_make_tile_deposit_gain`` in both of its sampling modes and with its
+``gain_only`` flag, with the plain versions transcribing the JAX package's
+XLA window form (``models/cbet.py:846-916``): the gain at each step's entry
+cell ("cell", ``cbet_gain_mode="kernel_cell"``) or trilinearly at each
+step's deposit position over the zero-ghost padded table ("tri",
+``cbet_gain_mode="kernel"``, ``:861-873``), then ``cumprod``, ``cummax``,
+and a per-step ``index_add_``.  The kernel is ``csrc/gain_deposit.cu``; its
+header states the contract row by row and what bounds it on the card.
 
 ``deposit_gain_window(edep, cx, cy, cz, fx, fy, fz, inc, ds, u_nogain,
-uinit, lcx, lcy, lcz, gain, rays_per_group, clip, stop_fraction) ->
-(edep, overflow, gamma, uout)``:
+uinit, lcx, lcy, lcz, gain, rays_per_group, clip, stop_fraction,
+gain_only=False) -> (edep, overflow, gamma, uout)`` ("cell") and
+``deposit_gain_window_tri(edep, cx, cy, cz, fx, fy, fz, inc, ds, u_nogain,
+uinit, gain, rays_per_group, clip, stop_fraction, gain_only=False)``
+("tri"; no entry cells):
 
 * the streams ``cx .. u_nogain`` and the entry (lag) cells ``lc*`` are
   contiguous step-major ``(batch, n)`` tensors (int32 cells, floats of the
-  grid's dtype); ``uinit`` is ``(n,)``; ``gain`` is the ``(B, nx*ny*nz)``
-  table in the grid's dtype, ray ``r`` reading row ``r // rays_per_group``;
+  grid's dtype); ``uinit`` is ``(n,)``; ``gain`` is the unpadded
+  ``(B, nx*ny*nz)`` table in the grid's dtype, ray ``r`` reading row
+  ``r // rays_per_group``;
 * ``edep`` (the natural ``(nx+2, ny+2, nz+2)`` grid) is updated IN PLACE
-  with the gained increments up to each ray's death step;
+  with the gained increments up to each ray's death step, unless
+  ``gain_only`` (light CBET iterations), which leaves it untouched;
 * ``gamma`` ``(batch, n)`` is the cumulative gain factor masked from the
   killing step on (it multiplies the gain-free intensity contributions);
   ``uout`` ``(n,)`` the frozen true energy;
-* ``overflow`` counts live rows whose entry cell or deposit corners leave
-  the grid (0 on the trace's clamped cells).
+* ``overflow`` counts live rows whose deposit corners leave the grid (with
+  or without ``gain_only``) and, in "cell" mode, whose entry cell does (0 on
+  the trace's clamped cells).
 
-The wrapper launches the kernel for CUDA tensors (after checking device,
-dtype, shape and contiguity; it raises on anything else) and takes the plain
-version only for CPU tensors.  ``LAUNCHES`` counts kernel launches.
+The wrappers launch the kernel for CUDA tensors (after checking device,
+dtype, shape and contiguity; they raise on anything else) and take the
+plain versions only for CPU tensors.  ``LAUNCHES``, ``TRI_LAUNCHES`` and
+``GAIN_ONLY_LAUNCHES`` count kernel launches.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .deposit import _on_cpu, _raise_on, deposit_reference
+from .deposit import _corner_parts, _on_cpu, _raise_on, deposit_reference
 
-#: number of window-gain kernel launches in this process (the plain version
-#: and the CPU path do not count)
+#: number of "cell" window-gain kernel launches with the edep deposit in
+#: this process (the plain versions and the CPU path do not count)
 LAUNCHES = 0
+#: number of "tri" window-gain kernel launches with the edep deposit
+TRI_LAUNCHES = 0
+#: number of gain-only window-gain kernel launches, of either mode
+GAIN_ONLY_LAUNCHES = 0
 
 
 def _check(edep, streams, lags, uinit, gain, rays_per_group):
-    """Shape, dtype and layout checks shared by both versions; returns
+    """Shape, dtype and layout checks shared by all versions; returns
     ``(batch, n, (nx, ny, nz))``."""
     if edep.dim() != 3:
         raise ValueError(f"edep must be a 3-D grid, got {tuple(edep.shape)}")
@@ -72,21 +85,11 @@ def _check(edep, streams, lags, uinit, gain, rays_per_group):
     return batch, n, (nx, ny, nz)
 
 
-def deposit_gain_window_reference(edep, cx, cy, cz, fx, fy, fz, inc, ds,
-                                  u_nogain, uinit, lcx, lcy, lcz, gain,
-                                  rays_per_group, clip, stop_fraction):
-    """The plain PyTorch version (the XLA window form of the JAX package).
-    Same contract as :func:`deposit_gain_window`, on any device."""
-    batch, n, (nx, ny, nz) = _check(edep, (cx, cy, cz, fx, fy, fz, inc, ds,
-                                           u_nogain), (lcx, lcy, lcz),
-                                    uinit, gain, rays_per_group)
-    beam = torch.arange(n, device=cx.device) // rays_per_group
-    inb = ((lcx >= 0) & (lcx < nx) & (lcy >= 0) & (lcy < ny)
-           & (lcz >= 0) & (lcz < nz))
-    flat = (lcx.to(torch.int64) * ny + lcy) * nz + lcz
-    idx = beam[None, :] * (nx * ny * nz) + torch.where(inb, flat, 0)
-    g = torch.where(inb, gain.reshape(-1)[idx], 0.0)
-    overflow = (~inb & (ds != 0)).sum().to(torch.int32)
+def _window_reference(edep, g, streams, uinit, clip, stop_fraction,
+                      gain_only):
+    """The window model after the gain sample ``g`` (batch, n): the
+    cumulative factors, the exact termination and the deposit."""
+    cx, cy, cz, fx, fy, fz, inc, ds, u_nogain = streams
     gam = torch.exp(torch.clamp(g * ds, -clip, clip))
     gcum = torch.cumprod(gam, dim=0)
     # exact termination: deposits masked from the step AFTER the first
@@ -99,34 +102,76 @@ def deposit_gain_window_reference(edep, cx, cy, cz, fx, fy, fz, inc, ds,
     medep = 1.0 - prev_any
     mint = 1.0 - anydied
     inc_c = inc * gcum * medep
-    for j in range(batch):
-        edep, of = deposit_reference(edep, cx[j], cy[j], cz[j], fx[j], fy[j],
-                                     fz[j], inc_c[j])
-        overflow = overflow + of
+    if gain_only:
+        # no deposit, the same overflow count as the deposit's
+        _, _, ok = _corner_parts(*(a.reshape(-1) for a in streams[:6]),
+                                 inc_c.reshape(-1), edep.shape)
+        overflow = ((inc_c.reshape(-1) != 0) & ~ok).sum().to(torch.int32)
+    else:
+        overflow = torch.zeros((), dtype=torch.int32, device=edep.device)
+        for j in range(g.shape[0]):
+            edep, of = deposit_reference(edep, cx[j], cy[j], cz[j], fx[j],
+                                         fy[j], fz[j], inc_c[j])
+            overflow = overflow + of
     # frozen true energy: at the first death step, else the window end
     uout = ((u_true * died * medep).sum(dim=0)
             + u_true[-1] * (1.0 - anydied[-1]))
     return edep, overflow, gcum * mint, uout
 
 
-def deposit_gain_window(edep, cx, cy, cz, fx, fy, fz, inc, ds, u_nogain,
-                        uinit, lcx, lcy, lcz, gain, rays_per_group, clip,
-                        stop_fraction):
-    """One window of the exact entry-cell gain model: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors.  Returns ``(edep,
-    overflow, gamma, uout)``."""
-    global LAUNCHES
+def deposit_gain_window_reference(edep, cx, cy, cz, fx, fy, fz, inc, ds,
+                                  u_nogain, uinit, lcx, lcy, lcz, gain,
+                                  rays_per_group, clip, stop_fraction,
+                                  gain_only=False):
+    """The plain PyTorch version of the "cell" mode (the XLA window form of
+    the JAX package).  Same contract as :func:`deposit_gain_window`, on any
+    device."""
     streams = (cx, cy, cz, fx, fy, fz, inc, ds, u_nogain)
-    lags = (lcx, lcy, lcz)
-    args = streams + (uinit,) + lags + (gain,)
-    if _on_cpu(edep, args, "window-gain deposit"):
-        return deposit_gain_window_reference(edep, *args, rays_per_group,
-                                             clip, stop_fraction)
+    _, n, (nx, ny, nz) = _check(edep, streams, (lcx, lcy, lcz), uinit, gain,
+                                rays_per_group)
+    beam = torch.arange(n, device=cx.device) // rays_per_group
+    inb = ((lcx >= 0) & (lcx < nx) & (lcy >= 0) & (lcy < ny)
+           & (lcz >= 0) & (lcz < nz))
+    flat = (lcx.to(torch.int64) * ny + lcy) * nz + lcz
+    idx = beam[None, :] * (nx * ny * nz) + torch.where(inb, flat, 0)
+    g = torch.where(inb, gain.reshape(-1)[idx], 0.0)
+    lag_of = (~inb & (ds != 0)).sum().to(torch.int32)
+    edep, overflow, gamma, uout = _window_reference(
+        edep, g, streams, uinit, clip, stop_fraction, gain_only)
+    return edep, overflow + lag_of, gamma, uout
+
+
+def deposit_gain_window_tri_reference(edep, cx, cy, cz, fx, fy, fz, inc, ds,
+                                      u_nogain, uinit, gain, rays_per_group,
+                                      clip, stop_fraction, gain_only=False):
+    """The plain PyTorch version of the "tri" mode: the XLA form's gather
+    of the eight deposit corners, with the deposit's weights, from the
+    zero-ghost padded table (``models/cbet.py:693-696``, ``:861-873``).
+    Same contract as :func:`deposit_gain_window_tri`, on any device."""
+    streams = (cx, cy, cz, fx, fy, fz, inc, ds, u_nogain)
+    batch, n, (nx, ny, nz) = _check(edep, streams, (), uinit, gain,
+                                    rays_per_group)
+    gpad = torch.nn.functional.pad(
+        gain.reshape(-1, nx, ny, nz), (1, 1, 1, 1, 1, 1)).reshape(-1)
+    beam = torch.arange(n, device=cx.device) // rays_per_group
+    off = (beam * edep.numel()).repeat(batch)
+    idx, w, ok = _corner_parts(*(a.reshape(-1) for a in streams[:6]),
+                               torch.ones_like(ds).reshape(-1), edep.shape)
+    idx = torch.where(ok[:, None], idx + off[:, None], 0)
+    g = torch.where(ok, (gpad[idx] * w).sum(dim=1), 0.0).reshape(batch, n)
+    return _window_reference(edep, g, streams, uinit, clip, stop_fraction,
+                             gain_only)
+
+
+def _launch(edep, streams, uinit, lags, gain, rays_per_group, clip,
+            stop_fraction, gain_only):
+    """Check the CUDA arguments and launch the kernel; "tri" when there are
+    no lag cells.  Returns ``(edep, overflow, gamma, uout)``."""
     batch, n, (nx, ny, nz) = _check(edep, streams, lags, uinit, gain,
                                     rays_per_group)
     if edep.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"edep must be float32 or float64, got {edep.dtype}")
-    for a in (edep,) + args:
+    for a in (edep,) + streams + (uinit,) + lags + (gain,):
         if a.device != edep.device or not a.is_contiguous():
             raise ValueError("window-gain inputs must be contiguous tensors "
                              f"on {edep.device}")
@@ -134,15 +179,61 @@ def deposit_gain_window(edep, cx, cy, cz, fx, fy, fz, inc, ds, u_nogain,
     lib = cuda_build.load()
     fn = (lib.cbet_gain_window_f32 if edep.dtype == torch.float32
           else lib.cbet_gain_window_f64)
+    lag_ptrs = [a.data_ptr() for a in lags] if lags else [None] * 3
     overflow = torch.zeros((), dtype=torch.int32, device=edep.device)
     gamma = torch.empty((batch, n), dtype=edep.dtype, device=edep.device)
     uout = torch.empty((n,), dtype=edep.dtype, device=edep.device)
     with torch.cuda.device(edep.device):
         stream = torch.cuda.current_stream(edep.device).cuda_stream
-        rc = fn(edep.data_ptr(), *(a.data_ptr() for a in args), n,
+        rc = fn(edep.data_ptr(), *(a.data_ptr() for a in streams),
+                uinit.data_ptr(), *lag_ptrs, gain.data_ptr(), n,
                 rays_per_group, batch, nx, ny, nz, float(clip),
-                float(stop_fraction), overflow.data_ptr(), gamma.data_ptr(),
-                uout.data_ptr(), stream)
+                float(stop_fraction), int(not lags), int(bool(gain_only)),
+                overflow.data_ptr(), gamma.data_ptr(), uout.data_ptr(),
+                stream)
     _raise_on(rc, lib, "window-gain deposit")
-    LAUNCHES += 1
     return edep, overflow, gamma, uout
+
+
+def deposit_gain_window(edep, cx, cy, cz, fx, fy, fz, inc, ds, u_nogain,
+                        uinit, lcx, lcy, lcz, gain, rays_per_group, clip,
+                        stop_fraction, gain_only=False):
+    """One window of the exact entry-cell gain model ("cell"): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors.  Returns
+    ``(edep, overflow, gamma, uout)``."""
+    global LAUNCHES, GAIN_ONLY_LAUNCHES
+    streams = (cx, cy, cz, fx, fy, fz, inc, ds, u_nogain)
+    lags = (lcx, lcy, lcz)
+    if _on_cpu(edep, streams + (uinit,) + lags + (gain,),
+               "window-gain deposit"):
+        return deposit_gain_window_reference(
+            edep, *streams, uinit, *lags, gain, rays_per_group, clip,
+            stop_fraction, gain_only)
+    out = _launch(edep, streams, uinit, lags, gain, rays_per_group, clip,
+                  stop_fraction, gain_only)
+    if gain_only:
+        GAIN_ONLY_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    return out
+
+
+def deposit_gain_window_tri(edep, cx, cy, cz, fx, fy, fz, inc, ds, u_nogain,
+                            uinit, gain, rays_per_group, clip, stop_fraction,
+                            gain_only=False):
+    """One window of the trilinear gain model ("tri"): the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors.  Returns ``(edep,
+    overflow, gamma, uout)``."""
+    global TRI_LAUNCHES, GAIN_ONLY_LAUNCHES
+    streams = (cx, cy, cz, fx, fy, fz, inc, ds, u_nogain)
+    if _on_cpu(edep, streams + (uinit, gain), "window-gain deposit"):
+        return deposit_gain_window_tri_reference(
+            edep, *streams, uinit, gain, rays_per_group, clip,
+            stop_fraction, gain_only)
+    out = _launch(edep, streams, uinit, (), gain, rays_per_group, clip,
+                  stop_fraction, gain_only)
+    if gain_only:
+        GAIN_ONLY_LAUNCHES += 1
+    else:
+        TRI_LAUNCHES += 1
+    return out

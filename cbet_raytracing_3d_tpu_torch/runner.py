@@ -51,8 +51,13 @@ def estimate_device_bytes(cfg: Config, with_cbet: bool = False) -> int:
       float32 copy the gain reads and the float32 gain it returns; the
       (B, P) gain table in the ray dtype (plus the float32 upsampling
       temporaries when the CBET grid is coarsened); the per-beam intensity
-      grids (B, hx+2, hy+2, hz+2), chunk grid and master; in kernel_cell
-      mode the window's (batch, N) streams."""
+      grids (B, hx+2, hy+2, hz+2), chunk grid and master; the window's
+      (batch, N) streams: in the kernel gain modes the window advance's,
+      in the batched lookup the per-step rows and their concatenation; for
+      ``cbet_accel="anderson"``
+      three more intensity-sized buffers (the secant history and the
+      residual).  The kernel gain modes read the unpadded (B, P) gain table
+      counted above: the port makes no padded copy of it."""
     layout = rt.build_tile_layout(cfg)
     n = layout.n_slots
     fbytes = 4 if cfg.dtype == "float32" else 8
@@ -70,10 +75,16 @@ def estimate_device_bytes(cfg: Config, with_cbet: bool = False) -> int:
         if cfg.cbet_grid_downsample > 1:
             total += 2 * B * P * 4
         total += 2 * B * (hx + 2) * (hy + 2) * (hz + 2) * fbytes
-        if cfg.cbet_gain_mode == "kernel_cell":
+        batch = max(1, cfg.deposit_batch_steps)
+        if cfg.cbet_gain_mode != "lookup":
             # 13 streams (cells, lag cells, fracs, inc, ds, contrib, energy,
             # gamma) of (batch, N), 4-byte ints counted at the float width
-            total += 13 * max(1, cfg.deposit_batch_steps) * n * fbytes
+            total += 13 * batch * n * fbytes
+        else:
+            # 8 rows (cells, fracs, inc, contrib) per step, twice
+            total += 16 * batch * n * fbytes
+        if cfg.cbet_accel == "anderson":
+            total += 3 * B * hx * hy * hz * fbytes
     return total
 
 

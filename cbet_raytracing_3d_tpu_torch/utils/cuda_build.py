@@ -133,8 +133,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         "cbet_deposit_grouped": [p] * 8 + [ll, ll, ll, i, i, i, p, p],
         # (edep, cx, cy, cz, fx, fy, fz, inc, ds, u_nogain, uinit, lcx, lcy,
         #  lcz, gain, n_rays, rays_per_group, batch, nx, ny, nz, clip, stop,
-        #  overflow, gamma, uout, stream)
-        "cbet_gain_window": [p] * 15 + [ll, ll, i, i, i, i, d, d, p, p, p, p],
+        #  tri, gain_only, overflow, gamma, uout, stream)
+        "cbet_gain_window": ([p] * 15 + [ll, ll, i, i, i, i, d, d, i, i]
+                             + [p] * 4),
     }
     for stem, argtypes in signatures.items():
         for suffix in ("_f32", "_f64"):

@@ -1,8 +1,9 @@
 """The port on the card: the CUDA kernels (the deposit K1, the grouped
-deposit K2, the gain reduction K3, the window-gain deposit K4) against their
-plain PyTorch versions, traces on the card against the CPU trace and the
-config-1 golden, and CBET solves through the kernels against solves through
-the plain versions.  Marked ``cuda``; each test skips without a CUDA device.
+deposit K2, the gain reduction K3, the window-gain deposit K4 in its "cell",
+"tri" and gain-only forms) against their plain PyTorch versions, traces on
+the card against the CPU trace and the config-1 golden, and CBET solves
+(with the opt-ins) through the kernels against solves through the plain
+versions.  Marked ``cuda``; each test skips without a CUDA device.
 
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies (the repository's conftest imports jax, hence
@@ -203,6 +204,103 @@ def test_cbet_solve_on_card_matches_plain(cuda, cbet_ctx, mode):
     assert gop.LAUNCHES - counts[0] == got.iterations
     assert dep.GROUPED_LAUNCHES > counts[1]
     assert (gdep.LAUNCHES > counts[2]) == (mode == "kernel_cell")
+    want = cbet.cbet_solve(cfg, ctx, cuda, ops=cbet.plain_ops())
+    assert got.iterations == want.iterations
+    assert rel_l2(got.edep, want.edep) < 1e-6
+    assert rel_l2(got.intensity, want.intensity) < 1e-6
+
+
+def _window(cuda, cbet_ctx, dtype, tri, off_grid=0):
+    """Phase 8's window case at CBET_SMALL, as K4 "cell" (with the entry
+    cells) or "tri" (without) arguments; ``off_grid`` rows that deposit at
+    step 0 get a deposit cell outside the grid."""
+    from chip_smoke import smooth_gain, window_case
+    cfg = Config(**CBET_SMALL)
+    gain = smooth_gain(np.random.default_rng(6), cfg, 40.0, dtype, cuda)
+    st, args = window_case(cfg, cbet_ctx, cuda, dtype, 3 * cfg.nt // 8,
+                           gain)
+    rows = torch.nonzero(args[6][0] != 0).reshape(-1)[:off_grid]
+    args[0][0, rows] = cfg.nx + 5
+    return cfg, st, (args[:10] + args[13:] if tri else args)
+
+
+@pytest.mark.parametrize("tri,gain_only", [(True, False), (True, True),
+                                           (False, True)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_gain_window_optin_kernels_match_plain(cuda, cbet_ctx, tri,
+                                               gain_only, dtype, tol):
+    """K4 "tri" and K4 gain-only against their plain versions: gamma, uout,
+    edep (gain-only: bit-untouched) and the overflow of three rows whose
+    deposit corners leave the grid."""
+    cfg, st, args = _window(cuda, cbet_ctx, dtype, tri, off_grid=3)
+    fn, ref = ((gdep.deposit_gain_window_tri,
+                gdep.deposit_gain_window_tri_reference) if tri else
+               (gdep.deposit_gain_window, gdep.deposit_gain_window_reference))
+    e0 = torch.full(cfg.edep_shape, 0.5 if gain_only else 0.0, dtype=dtype,
+                    device=cuda)
+    counts = (gdep.LAUNCHES, gdep.TRI_LAUNCHES, gdep.GAIN_ONLY_LAUNCHES)
+    e_k, of_k, g_k, u_k = fn(e0.clone(), *args, gain_only=gain_only)
+    assert (gdep.LAUNCHES, gdep.TRI_LAUNCHES, gdep.GAIN_ONLY_LAUNCHES) == (
+        counts[0], counts[1] + (tri and not gain_only),
+        counts[2] + gain_only)
+    e_p, of_p, g_p, u_p = ref(e0.clone(), *args, gain_only=gain_only)
+    assert int(of_k) == int(of_p) == 3
+    for got, want in ((g_k, g_p), (u_k, u_p)):
+        assert rel_l2(got.cpu(), want.cpu()) < tol
+    if gain_only:
+        assert torch.equal(e_k, e0) and torch.equal(e_p, e0)
+    else:
+        assert rel_l2(e_k.cpu(), e_p.cpu()) < tol
+    thr = cfg.stop_fraction * st.uray_init
+    assert torch.equal(st.alive & (u_k > thr), st.alive & (u_p > thr))
+
+
+def test_gain_window_tri_rejects_bad_arguments(cuda, cbet_ctx):
+    """The wrapper raises on a wrong dtype, shape, layout or device instead
+    of falling back to the plain version."""
+    cfg, _, args = _window(cuda, cbet_ctx, torch.float32, True)
+    edep = torch.zeros(cfg.edep_shape, dtype=torch.float32, device=cuda)
+    fn = gdep.deposit_gain_window_tri
+    before = (gdep.TRI_LAUNCHES, gdep.GAIN_ONLY_LAUNCHES)
+    with pytest.raises(TypeError):
+        fn(edep.double(), *args)
+    with pytest.raises(TypeError):
+        fn(edep, args[0].long(), *args[1:])
+    with pytest.raises(ValueError):                  # uinit of another length
+        fn(edep, *args[:9], args[9][:-1], *args[10:])
+    with pytest.raises(ValueError):                  # not contiguous
+        fn(edep, *args[:6], args[6].t().contiguous().t(), *args[7:])
+    with pytest.raises(ValueError):                  # an input on the CPU
+        fn(edep, *args[:8], args[8].cpu(), *args[9:])
+    with pytest.raises(ValueError):                  # the grid on the CPU
+        fn(edep.cpu(), *args, gain_only=True)
+    assert before == (gdep.TRI_LAUNCHES, gdep.GAIN_ONLY_LAUNCHES)
+
+
+@pytest.mark.parametrize("over", [
+    dict(cbet_gain_mode="kernel"),
+    dict(cbet_gain_mode="kernel_cell", cbet_light_iterations=True),
+    dict(cbet_light_iterations=True),
+    dict(cbet_accel="anderson"),
+    dict(cbet_gain_stride=4),
+])
+def test_cbet_optin_solve_on_card_matches_plain(cuda, cbet_ctx, over):
+    """Each opt-in's whole solve through the kernels against the same solve
+    through the plain versions on the card (f64), with its kernels'
+    launches."""
+    from cbet_raytracing_3d_tpu_torch.models import cbet
+    cfg = Config(**CBET_SMALL, dtype="float64", cbet_max_iters=3, **over)
+    ctx = rt.prepare(cfg)
+    counts = (gdep.TRI_LAUNCHES, gdep.GAIN_ONLY_LAUNCHES, dep.LAUNCHES)
+    got = cbet.cbet_solve(cfg, ctx, cuda)
+    assert (gdep.TRI_LAUNCHES > counts[0]) == ("cbet_gain_mode" in over
+                                               and over["cbet_gain_mode"]
+                                               == "kernel")
+    assert (gdep.GAIN_ONLY_LAUNCHES > counts[1]) == (
+        "cbet_gain_mode" in over and "cbet_light_iterations" in over)
+    assert dep.LAUNCHES > counts[2] or "cbet_gain_mode" in over
+    assert got.stats["light_iterations"] == ("cbet_light_iterations" in over)
     want = cbet.cbet_solve(cfg, ctx, cuda, ops=cbet.plain_ops())
     assert got.iterations == want.iterations
     assert rel_l2(got.edep, want.edep) < 1e-6
