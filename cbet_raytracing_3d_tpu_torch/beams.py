@@ -89,14 +89,17 @@ class RayInit:
     mask: np.ndarray
 
 
-def init_rays(cfg: Config, beam_norm: np.ndarray, pow_r: np.ndarray) -> RayInit:
+def site_launch(cfg: Config, pow_r: np.ndarray):
+    """Per thread id ``k`` of a beam (the same for every beam): the launch
+    lattice position ``(x0, y0)``, the launch energy and the launch mask
+    (the circular pupil, launch_ray_XZ.cu:114, and in ``parity=
+    "reference"`` mode the launch-grid truncation, main.cu:161)."""
     k_idx = np.arange(cfg.nrays, dtype=np.int64)
     raynum = ray_permutation(cfg, k_idx)
 
     # Launch lattice in the focal plane (launch_ray_XZ.cu:76-97).
     x0, y0 = lattice_xy(cfg, raynum % cfg.nrays_x, raynum // cfg.nrays_x)
     ref = np.sqrt(x0 * x0 + y0 * y0)
-    z0 = np.full_like(x0, cfg.focal_length - cfg.dz / 2)
 
     # Initial ray energy from the super-Gaussian pupil profile
     # (launch_ray_XZ.cu:113); the power table is uniformly spaced so the
@@ -107,6 +110,12 @@ def init_rays(cfg: Config, beam_norm: np.ndarray, pow_r: np.ndarray) -> RayInit:
     mask1 = ref <= cfg.beam_max_x
     if cfg.parity == "reference":
         mask1 &= k_idx < cfg.traced_rays_per_beam
+    return x0, y0, uray1, mask1
+
+
+def init_rays(cfg: Config, beam_norm: np.ndarray, pow_r: np.ndarray) -> RayInit:
+    x0, y0, uray1, mask1 = site_launch(cfg, pow_r)
+    z0 = np.full_like(x0, cfg.focal_length - cfg.dz / 2)
 
     # Per-beam Euler rotations (launch_ray_XZ.cu:99-111).
     nb = beam_norm.shape[0]

@@ -4,7 +4,9 @@ Counterpart of the ``run`` and ``dump`` subcommands of
 ``cbet_raytracing_3d_tpu/cli.py``.  Every config field is a flag:
 
 * ``run``  — full simulation (the plain trace; with ``--cbet`` also the CBET
-              fixed-point solve), outputs to ``--out-dir``
+              fixed-point solve), outputs to ``--out-dir``; by default
+              (``--cache-dir .cbet_cache``) both are compacted mid-trace,
+              as the JAX CLI runs them; ``--cache-dir ''`` does not
 * ``dump`` — reference-compatible -D PRINT text dump to stdout
               (Makefile:14-17 golden-test replacement)
 
@@ -98,6 +100,11 @@ def main(argv=None) -> int:
     p_run.add_argument("--cbet", action="store_true",
                        help="also run the CBET fixed-point solve")
     p_run.add_argument("--quiet", action="store_true")
+    p_run.add_argument("--cache-dir", default=".cbet_cache",
+                       help="as in the JAX CLI: with a directory ('' "
+                            "disables) the trace and the CBET solve drop "
+                            "dead tiles mid-trace; the port writes nothing "
+                            "there")
 
     p_dump = sub.add_parser("dump", help="-D PRINT compatible dump to stdout")
     _add_config_flags(p_dump)
@@ -107,7 +114,7 @@ def main(argv=None) -> int:
 
     if args.cmd == "run":
         res = run(cfg, with_cbet=args.cbet, device=args.device,
-                  verbose=not args.quiet)
+                  verbose=not args.quiet, cache_dir=args.cache_dir or None)
         paths = write_outputs(res, args.out_dir,
                               tuple(args.formats.split(",")))
         if not args.quiet:

@@ -92,8 +92,12 @@ class Config:
     # trace follows (needs the batched path); None (auto) and False: off
     cbet_light_iterations: bool | None = None
     cbet_seed_zero_gain: bool = True
-    # not read: segment compaction does not change values (ROADMAP M9)
+    # True: each CBET trace drops dead tiles at chunk boundaries, per beam
+    # (models/tileplan.py); the values do not change
     cbet_segmented: bool = False
+    # accepted and reported (stats["plan_headroom"]) as in the JAX package,
+    # and inert: the port's compaction reads the trace's own alive mask,
+    # exact at any headroom, where the JAX package plans liveness ahead
     cbet_plan_headroom: float = 0.0
     cbet_grid_downsample: int = 1
 

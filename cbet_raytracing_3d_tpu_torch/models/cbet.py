@@ -29,8 +29,14 @@ change drops below ``cbet_tol``.
   deposit; one full trace with the last gain makes edep) and Anderson(m=1)
   mixing of the intensity iterates.
 
-Not here (ROADMAP): segment compaction (M9; ``cbet_segmented`` does not
-change values) and the mesh solve (M11).
+* ``cbet_segmented``: each trace drops dead tiles at chunk boundaries,
+  per beam, to a uniform width (``models/tileplan.py``); the values do not
+  change.  ``cbet_plan_headroom`` is accepted and reported as the JAX
+  package does, and changes nothing: the compaction reads the trace's own
+  ``alive`` mask, exact under any gain, so there is no plan whose liveness
+  a headroom could relax and no retry.
+
+Not here (ROADMAP): the mesh solve (M11).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from ..ops import gain_deposit as gd_ops
 from ..ops.gain import resonance  # noqa: F401  (models/cbet.py:119)
 from ..parallel.sharding import pad_rays
 from . import raytracer as rt
+from .tileplan import DroppedAliveRaysError, TileCompactor  # noqa: F401
 
 # Stability clamp on the per-step gain exponent (models/cbet.py:64): THE one
 # value for the lookup step and the window-gain deposit, which must stay
@@ -165,33 +172,36 @@ def make_gain_upsampler(cfg: Config, device="cpu"):
 
 def live_tile_slots(cfg: Config, ctx: rt.TraceContext) -> np.ndarray:
     """Per-beam live-tile slot selection for CBET traces
-    (``models/cbet.py:315``): the launched tiles of each beam, padded to a
-    ``tiles_per_block`` multiple with that beam's own dead tiles, so every
-    beam owns ``tiles_per_group`` contiguous tiles and the slots equal the
-    JAX solver's one for one.  The pupil mask is beam-independent, so every
-    beam has the same live count."""
+    (``models/cbet.py:315``): the layout of ``raytracer.live_tile_ids`` —
+    the launched tiles of each beam, padded to a ``tiles_per_block``
+    multiple with that beam's own dead tiles, so every beam owns
+    ``tiles_per_group`` contiguous tiles and the slots equal the JAX
+    solver's one for one.  A compact context (``prepare_device``) is born
+    in that layout: all its slots.  A host context's state must launch rays
+    in exactly the layout's live tiles; the pupil mask is beam-independent,
+    so every beam has the same live count."""
+    if ctx.compact:
+        return np.arange(ctx.state0.n, dtype=np.int64)
     rpt = ctx.layout.rays_per_tile
     tpb = ctx.layout.tiles_per_beam
     mask = ctx.state0.alive.cpu().numpy()
-    tile_live = mask.reshape(-1, rpt).any(axis=1).reshape(cfg.nbeams, tpb)
-    counts = tile_live.sum(axis=1)
+    tile_live = mask.reshape(-1, rpt).any(axis=1)
+    counts = tile_live.reshape(cfg.nbeams, tpb).sum(axis=1)
     if not (counts == counts[0]).all():
         raise RuntimeError(
             f"per-beam live-tile counts differ ({counts.tolist()}) — the "
             "beam-independent pupil assumption this layout relies on does "
             "not hold for this scene")
-    n_pad = -int(counts[0]) % cfg.tiles_per_block
-    tiles = []
-    for b in range(cfg.nbeams):
-        live = np.nonzero(tile_live[b])[0]
-        dead = np.nonzero(~tile_live[b])[0]
-        if len(dead) < n_pad:
-            raise RuntimeError(
-                f"beam {b} has {len(dead)} dead tiles, fewer than the "
-                f"{n_pad} needed to block-pad its group")
-        tiles.append(b * tpb + np.concatenate([live, dead[:n_pad]]))
-    tiles = np.concatenate(tiles)
-    return (tiles[:, None] * rpt + np.arange(rpt)[None, :]).reshape(-1)
+    ids, valid = rt.live_tile_ids(cfg, ctx.layout)
+    if not np.array_equal(tile_live[ids], valid):
+        raise RuntimeError("the state's launched tiles differ from the "
+                           "pupil's live tiles (raytracer.live_tile_ids)")
+    if len(np.unique(ids)) != len(ids):
+        raise RuntimeError(
+            f"a beam has fewer dead tiles than it needs to pad its "
+            f"{int(valid.sum()) // cfg.nbeams} live tiles to a multiple of "
+            f"tiles_per_block={cfg.tiles_per_block}")
+    return rt.tile_slots(ids, rpt)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -363,7 +373,15 @@ def make_cbet_trace_fn(cfg: Config, ctx: rt.TraceContext,
     ``light`` builds the light-iteration trace (``edep_skip``,
     ``models/cbet.py:1441-1459``): the same state and intensity, no edep
     deposit (the returned edep is zeros; the kernel modes call the window
-    kernel's gain-only form); it needs the batched path."""
+    kernel's gain-only form); it needs the batched path.
+
+    ``cfg.cbet_segmented`` compacts the trace at chunk boundaries (which
+    are window boundaries) in the grouped mode of ``models/tileplan.py``:
+    the state and the beam ids are gathered down to a uniform per-beam
+    width, ``rays_per_group`` follows the width, and the final state is
+    written back to ``state0``'s layout, so every output equals the
+    uncompacted trace's.  A list passed as ``widths`` receives the
+    per-beam tile widths before the trace and after each compaction."""
     check_cbet_config(cfg)
     nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
     s = cfg.cbet_grid_downsample
@@ -372,7 +390,7 @@ def make_cbet_trace_fn(cfg: Config, ctx: rt.TraceContext,
     nb = cfg.nbeams
     tpg = (tiles_per_group if tiles_per_group is not None
            else ctx.layout.tiles_per_beam)
-    rays_per_group = tpg * ctx.layout.rays_per_tile
+    rpt = ctx.layout.rays_per_tile
     chunk, n_chunks, _ = _chunks(cfg)
     kernel_gain = cfg.cbet_gain_mode != "lookup"
     tri = cfg.cbet_gain_mode == "kernel"
@@ -408,7 +426,8 @@ def make_cbet_trace_fn(cfg: Config, ctx: rt.TraceContext,
         flat = (cx.to(torch.int64) * ny + cy) * nz + cz
         return gain_flat.index_select(0, bid_off + flat)
 
-    def lookup_window(state, edep, ib, field4, gain_flat, bid_off, o):
+    def lookup_window(state, edep, ib, field4, gain_flat, bid_off, o,
+                      rays_per_group):
         # models/cbet.py:944-983 (the per-step form :918-942 at batch 1):
         # each step's energy gains exp(clip(g * ds)) along its path element,
         # g at its entry cell (or at the window-entry cell for the whole
@@ -438,7 +457,7 @@ def make_cbet_trace_fn(cfg: Config, ctx: rt.TraceContext,
             of = of + of_e
         return state, edep, ib, of
 
-    def window_step(state, edep, ib, field4, gain, o):
+    def window_step(state, edep, ib, field4, gain, o, rays_per_group):
         # models/cbet.py:801-916: `batch` steps without gain, then the
         # window-gain deposit (gain at each step's entry cell or trilinear
         # at its deposit position, exact termination, edep unless light)
@@ -464,7 +483,7 @@ def make_cbet_trace_fn(cfg: Config, ctx: rt.TraceContext,
             st, uray=uout, alive=st.alive & (uout > stop_frac * st.uray_init))
         return state, edep, ib, of_e + of_i
 
-    def trace(field4, gain, bid, state0: rt.RayState):
+    def trace(field4, gain, bid, state0: rt.RayState, widths=None):
         device = state0.uray.device
         dtype = state0.uray.dtype
         o = ops or resolve_cbet_ops(cfg, device)
@@ -477,25 +496,42 @@ def make_cbet_trace_fn(cfg: Config, ctx: rt.TraceContext,
         master = torch.zeros(shape3, dtype=master_dtype, device=device)
         imaster = torch.zeros(ishape, dtype=dtype, device=device)
         oflow = torch.zeros((), dtype=torch.int32, device=device)
+        comp = None
+        if cfg.cbet_segmented:
+            if state0.n != nb * tpg * rpt:
+                raise ValueError(
+                    f"a compacted CBET trace needs {nb} beam groups of "
+                    f"{tpg} tiles ({nb * tpg * rpt} slots), got {state0.n}")
+            comp = TileCompactor(state0, rpt, n_groups=nb)
+        rays_per_group = tpg * rpt
         state, steps = state0, 0
         for ci in range(n_chunks):
             if not bool(state.alive.any()):
                 break
+            if comp is not None:
+                state, (bid_off,) = comp.update(state, (bid_off,),
+                                                first=ci == 0)
+                rays_per_group = comp.width * rpt
             n_steps = min(chunk, cfg.nt - ci * chunk)
             edep = torch.zeros(shape3, dtype=dtype, device=device)
             ib = torch.zeros(ishape, dtype=dtype, device=device)
             for _ in range(n_steps // batch):
                 if kernel_gain:
-                    state, edep, ib, of = window_step(state, edep, ib,
-                                                      field4, gain, o)
+                    state, edep, ib, of = window_step(
+                        state, edep, ib, field4, gain, o, rays_per_group)
                 else:
                     state, edep, ib, of = lookup_window(
-                        state, edep, ib, field4, gain_flat, bid_off, o)
+                        state, edep, ib, field4, gain_flat, bid_off, o,
+                        rays_per_group)
                 oflow += of
             steps += n_steps
             if not light:
                 master += edep.to(master_dtype)
             imaster += ib
+        if comp is not None:
+            state = comp.final(state)
+            if widths is not None:
+                widths.extend(comp.widths)
         # crop the ghosts -> per-beam node fields on the CBET grid
         inodes = imaster[:, 1:-1, 1:-1, 1:-1].reshape(nb, hx * hy * hz)
         return master, inodes, state, oflow, steps
@@ -529,6 +565,8 @@ class _CbetSolver:
     state0: rt.RayState
     bid: torch.Tensor
     make_zero_gain: Any        # () -> (B, P) zeros; a factory, not a buffer
+    # per-beam tile widths of the last trace (cbet_segmented; else empty)
+    tile_widths: list = dataclasses.field(default_factory=list)
     # memoized zero-gain (iteration-0) intensity (cbet_seed_zero_gain)
     seed_intensity: Any = None
 
@@ -563,8 +601,9 @@ def _build_solver(cfg: Config, ctx: rt.TraceContext, device,
     rpt = ctx.layout.rays_per_tile
     slots = live_tile_slots(cfg, ctx)
     tpg = (len(slots) // rpt) // cfg.nbeams
-    state0 = pad_rays(rt.select_rays(ctx.state0, slots),
-                      rpt * cfg.tiles_per_block)
+    # a compact context's state0 is already this layout, on its device
+    state0 = ctx.state0 if ctx.compact else pad_rays(
+        rt.select_rays(ctx.state0, slots), rpt * cfg.tiles_per_block)
     # per-slot beam ids (padding slots get 0 but are permanently dead)
     bid = np.maximum(ctx.beam_id[slots], 0).astype(np.int32)
     bid = np.pad(bid, (0, state0.n - bid.shape[0]))
@@ -572,9 +611,13 @@ def _build_solver(cfg: Config, ctx: rt.TraceContext, device,
     bid_t = torch.from_numpy(bid).to(device)
     field4 = ctx.field4.to(device)
 
+    widths = []            # the last trace's tile widths (cbet_segmented)
+
     def checked(fn):
         def trace(gain):
-            edep, inodes, st, of, steps = fn(field4, gain, bid_t, state0)
+            widths.clear()
+            edep, inodes, st, of, steps = fn(field4, gain, bid_t, state0,
+                                             widths)
             rt.check_overflow(int(of), cfg)
             return edep, inodes, st, steps
         return trace
@@ -597,7 +640,7 @@ def _build_solver(cfg: Config, ctx: rt.TraceContext, device,
     return _CbetSolver(gain_fn=make_gain_fn(cfg, ctx, device, ops.gain),
                        upsample=upsample, trace=trace,
                        trace_light=trace_light, state0=state0, bid=bid_t,
-                       make_zero_gain=make_zero_gain)
+                       make_zero_gain=make_zero_gain, tile_widths=widths)
 
 
 def _accel_next(i_new, i_old, prev_x, prev_f, relax: float):
@@ -632,9 +675,10 @@ def cbet_solve(cfg: Config, ctx: rt.TraceContext, device=None,
                verbose: bool = False, ops: CbetOps | None = None
                ) -> CbetResult:
     """Fixed-point CBET solve on ``device`` (default: the card when there
-    is one, else the CPU); ``models/cbet.py:1534``/``:1559``, single device
-    and unsegmented.  ``ops`` overrides the kernel entry points (default:
-    resolved from ``cfg.deposit_backend``).
+    is one, else the CPU); ``models/cbet.py:1534``/``:1559``, single
+    device, its traces compacted with ``cfg.cbet_segmented``.  ``ops``
+    overrides the kernel entry points (default: resolved from
+    ``cfg.deposit_backend``).
 
     The gain is computed in float32 even in a float64 solve and cast back
     to the ray dtype.  Iteration 0 (zero gain) is memoized in the cached
@@ -734,10 +778,12 @@ def cbet_solve(cfg: Config, ctx: rt.TraceContext, device=None,
         cfg.nbeams, hx, hy, hz)
     stats["result_fetch_seconds"] = time.perf_counter() - tf
     stats["intensity_mode"] = "grouped"      # the per-beam grouped deposit
-    # the JAX solve's keys for what this port does not run (segment
-    # compaction, the mesh's sharded gain) are written with the values this
-    # solve had, so the outputs keep one schema
-    stats["segmented"] = False
+    stats["segmented"] = bool(cfg.cbet_segmented)
+    # the last trace's per-beam tile widths (compacted traces only)
+    stats["tile_widths"] = list(solver.tile_widths)
+    # the JAX solve's key for what this port does not run (the mesh's
+    # sharded gain) is written with the value this solve had, so the
+    # outputs keep one schema
     stats["gain_sharded"] = False
     stats["light_iterations"] = solver.trace_light is not None
     stats["gain_mode"] = cfg.cbet_gain_mode

@@ -14,7 +14,10 @@ tensor steps over all rays of all beams:
   version on the CPU (``ops/deposit.py``), once per step,
 * early ray termination (the CUDA ``break``, launch_ray_XZ.cu:351-356) is an
   ``alive`` mask with frozen state, and the trace stops at the first chunk
-  boundary where no ray is alive.
+  boundary where no ray is alive; optionally it drops dead tiles there
+  (``models/tileplan.py``),
+* the initial state is built on the host (``prepare``, float64 NumPy) or on
+  the card (``prepare_device``, float64 torch), with equal values.
 
 Every per-ray tensor is 1-D (structure of arrays).  Positions are carried
 cell-relative (``cell + frac``), so float32 rounding stays at the scale of
@@ -31,11 +34,12 @@ import numpy as np
 import torch
 
 from .. import constants as k
-from ..beams import init_rays, load_beam_norms, power_table
+from ..beams import init_rays, load_beam_norms, power_table, site_launch
 from ..config import Config
 from ..fields import Fields, build_fields
 from ..ops.deposit import deposit, deposit_reference
 from ..profiles import RadialProfiles, load_profiles
+from .tileplan import TileCompactor
 
 DEPOSIT_BACKENDS = ("auto", "cuda", "torch")
 
@@ -138,28 +142,86 @@ def build_tile_layout(cfg: Config) -> TileLayout:
 
 @dataclasses.dataclass(frozen=True)
 class TraceContext:
-    """Everything needed to run a trace: static config + host tensors.
+    """Everything needed to run a trace: static config + tensors.
 
-    ``field4`` and ``state0`` are CPU tensors; a run uploads them once
-    (``RayState.to``, ``Tensor.to``)."""
+    From :func:`prepare`: ``field4`` and ``state0`` are CPU tensors over the
+    full slot layout, which a run subsets (``live_slots``) and uploads once.
+    From :func:`prepare_device` (``compact=True``): both already live on the
+    device, ``state0`` in the live-tile, per-beam block-padded layout of
+    :func:`live_tile_ids`, and ``live_slots`` spans all of it."""
 
     cfg: Config
     prof: RadialProfiles
     beam_norm: np.ndarray        # (nbeams, 3) float64
     fields: Fields               # float64 node fields
-    rays: Any                    # beams.RayInit: float64 launch state
+    rays: Any                    # beams.RayInit: float64 launch state (None
+                                 # after prepare_device)
     layout: TileLayout
     field4: torch.Tensor         # (P, 4) rows [kick_x, kick_y, kick_z, absorb]
-    state0: RayState             # tile-ordered (n_slots,) initial state
-    beam_id: np.ndarray          # (n_slots,) int32 beam of each slot (-1 padding)
+    state0: RayState             # tile-ordered initial state
+    beam_id: np.ndarray          # (state0.n,) int32 beam of each slot (-1 padding)
     live_slots: np.ndarray       # slots of tiles with >=1 launched ray;
                                  # the other tiles never contribute
+    compact: bool = False        # state0 is already the traced layout
+
+
+def rays_per_tile(cfg: Config) -> int:
+    """Rays of one launch tile: ``(tile_zones * rays_per_zone)^2``."""
+    return (cfg.tile_zones * cfg.rays_per_zone) ** 2
 
 
 def _live_slots_of(mask_slots: np.ndarray, rpt: int) -> np.ndarray:
     tile_live = mask_slots.reshape(-1, rpt).any(axis=1)
-    return (np.nonzero(tile_live)[0][:, None] * rpt
+    return tile_slots(np.nonzero(tile_live)[0], rpt)
+
+
+def tile_slots(tiles: np.ndarray, rpt: int) -> np.ndarray:
+    """The slots of ``tiles`` (global tile ids), tile by tile."""
+    return (np.asarray(tiles, np.int64)[:, None] * rpt
             + np.arange(rpt)[None, :]).reshape(-1)
+
+
+def live_tile_ids(cfg: Config,
+                  layout: TileLayout) -> tuple[np.ndarray, np.ndarray]:
+    """Global ids of the tiles with >= 1 pupil-accepted ray, in traced order,
+    each beam's padded to a ``tiles_per_block`` multiple with that beam's
+    own dead tiles; returns ``(tile_ids int32, tile_valid bool)``
+    (``models/raytracer.py:527``).  Every beam then owns the same
+    block-aligned tile count, the beam-contiguous layout the grouped CBET
+    kernels read by position.  The pupil pattern is beam-independent, so
+    this is O(nrays) host work.  THE one definition of the layout: the
+    on-card init builds its state in it, and ``models.cbet.live_tile_slots``
+    selects the host state's slots by it."""
+    rpz, zones, tz = cfg.rays_per_zone, cfg.zones_spanned, cfg.tile_zones
+    ntiles_axis = -(-zones // tz)
+    kk = np.arange(cfg.nrays, dtype=np.int64)
+    ok = site_launch(cfg, power_table(cfg))[3]
+    zx = kk // (rpz * rpz) % zones
+    zy = kk // (rpz * rpz) // zones
+    tile = (zy // tz) * ntiles_axis + (zx // tz)
+    live_pattern = np.zeros(layout.tiles_per_beam, bool)
+    np.logical_or.at(live_pattern, tile, ok)
+    live = np.nonzero(live_pattern)[0]
+    dead = np.nonzero(~live_pattern)[0]
+    pad = (-len(live)) % cfg.tiles_per_block
+    # too few dead tiles: repeat one (its rays are masked by tile_valid)
+    fill = dead[:pad] if len(dead) >= pad else np.repeat(
+        (dead[:1] if len(dead) else live[:1]), pad)
+    per_beam = np.concatenate([live, fill])
+    valid1 = np.zeros(len(per_beam), bool)
+    valid1[:len(live)] = True
+    ids = np.concatenate([b * layout.tiles_per_beam + per_beam
+                          for b in range(cfg.nbeams)])
+    return ids.astype(np.int32), np.tile(valid1, cfg.nbeams)
+
+
+def _field_table(cfg: Config, fields: Fields) -> np.ndarray:
+    """The hot fields interleaved as float64 (P, 4) rows [kick_x, kick_y,
+    kick_z, absorb], so the per-step lookup is one row gather."""
+    d = np.array([cfg.dx, cfg.dy, cfg.dz])
+    kick = fields.fgrad * cfg.dt / d          # (nx,ny,nz,3) grid units/step
+    return np.concatenate([kick.reshape(-1, 3),
+                           fields.absorb.reshape(-1, 1)], axis=1)
 
 
 def prepare(cfg: Config, prof: RadialProfiles | None = None,
@@ -180,12 +242,7 @@ def prepare(cfg: Config, prof: RadialProfiles | None = None,
     np_dtype = np.dtype(cfg.dtype)
     d = np.array([cfg.dx, cfg.dy, cfg.dz])
     origin = np.array([cfg.xmin, cfg.ymin, cfg.zmin])
-
-    # hot fields interleaved as (P, 4) rows [kick_x, kick_y, kick_z, absorb]
-    # so the per-step lookup is one row gather
-    kick = fields.fgrad * cfg.dt / d          # (nx,ny,nz,3) grid units/step
-    f4 = np.concatenate([kick.reshape(-1, 3),
-                         fields.absorb.reshape(-1, 1)], axis=1)
+    f4 = _field_table(cfg, fields)
 
     # --- initial ray state (float64 on host, cast once) ---
     pos = rays.pos.reshape(-1, 3)                     # (nbeams*nrays, 3) cm
@@ -233,6 +290,158 @@ def prepare(cfg: Config, prof: RadialProfiles | None = None,
         layout=layout, field4=torch.from_numpy(f4.astype(np_dtype)),
         state0=state0, beam_id=beam_id,
         live_slots=_live_slots_of(mask_slots, layout.rays_per_tile))
+
+
+def _div(a: torch.Tensor, s: float) -> torch.Tensor:
+    """``a / s`` correctly rounded on every device: dividing by a CPU scalar
+    multiplies by its reciprocal on the card, one rounding more than the
+    host NumPy division the on-card init reproduces."""
+    return a / torch.tensor(s, dtype=a.dtype, device=a.device)
+
+
+def make_device_init(cfg: Config, layout: TileLayout):
+    """On-card ray initialization (``models/raytracer.py:407``), the
+    counterpart of the reference's GPU-side ``init()``
+    (launch_ray_XZ.cu:65-115): ``init(field4, w_node, beam_tab, site,
+    site_mask, tile_ids, tile_valid) -> RayState`` over ``T *
+    rays_per_tile`` slots, every argument a tensor on the target device.
+
+    It computes in float64 whatever the device, with the host
+    :func:`prepare`'s operations in its order (``_div`` keeps the divisions
+    exact), so the state equals the host's for every launched ray; the
+    caller casts it to the config's dtype.  The JAX kernel computes in the
+    field table's dtype only because the TPU lacks float64.  The two square
+    roots come from host tables, because PyTorch's CPU ``sqrt`` is not
+    correctly rounded: ``site`` (nrays, 3) holds each thread id's lattice
+    position and launch energy and ``site_mask`` its launch mask
+    (``beams.site_launch``), ``w_node`` (P,) the dispersion relation's
+    ``sqrt(omega^2 - wsq) / c`` at each node.  ``beam_tab`` is (nbeams, 7):
+    [c1, s1, c2, s2, bnx, bny, bnz].  Only these O(grid + nrays) tables
+    cross to the device; the per-ray state is born there."""
+    rpz = cfg.rays_per_zone
+    zones = cfg.zones_spanned
+    tz = cfg.tile_zones
+    side = tz * rpz
+    rpt = layout.rays_per_tile
+    tpb = layout.tiles_per_beam
+    ntiles_axis = -(-zones // tz)
+    tpb_real = ntiles_axis * ntiles_axis
+    d = (cfg.dx, cfg.dy, cfg.dz)
+    origin = (cfg.xmin, cfg.ymin, cfg.zmin)
+    nvec = (cfg.nx, cfg.ny, cfg.nz)
+    tol = cfg.cell_tol
+
+    def initial_cell_t(t, n):
+        c0 = torch.ceil(t - tol).to(torch.int32)
+        out = torch.zeros_like(c0)
+        for cand in (c0 + 1, c0):     # later write (c0) wins: first match
+            ok = (cand >= 0) & (cand <= n - 1) & ((cand - t).abs() <= tol)
+            out = torch.where(ok, cand, out)
+        return out
+
+    def init(field4, w_node, beam_tab, site, site_mask, tile_ids,
+             tile_valid):
+        dev = tile_ids.device
+        s = torch.arange(tile_ids.shape[0] * rpt, dtype=torch.int64,
+                         device=dev)
+        ti, rit = s // rpt, s % rpt
+        gtile = tile_ids.to(torch.int64).index_select(0, ti)
+        beam, tile = gtile // tpb, gtile % tpb
+        ty, tx = tile // ntiles_axis, tile % ntiles_axis
+        ly, lx = rit // side, rit % side
+        zy = ty * tz + ly // rpz
+        zx = tx * tz + lx // rpz
+        in_lat = (tile < tpb_real) & (zx < zones) & (zy < zones)
+        # the thread id of the slot's lattice site (launch_ray_XZ.cu:69-74)
+        kk = torch.where(in_lat, (zy * zones + zx) * (rpz * rpz)
+                         + (ly % rpz) * rpz + lx % rpz, 0)
+
+        # launch lattice in the focal plane, energy and mask of the site
+        x0, y0, uray = (site[:, i].index_select(0, kk) for i in range(3))
+        z0 = cfg.focal_length - cfg.dz / 2
+        mask = (in_lat & site_mask.index_select(0, kk)
+                & tile_valid.index_select(0, ti))
+
+        # the two Euler rotations (launch_ray_XZ.cu:99-111)
+        col = [beam_tab[:, i].index_select(0, beam) for i in range(7)]
+        c1, s1, c2, s2 = col[:4]
+        xa = x0 * c1 + z0 * s1
+        za = z0 * c1 - x0 * s1
+        xb = xa * c2 - y0 * s2
+        yb = y0 * c2 + xa * s2
+
+        # grid coordinates, initial cell, dispersion velocity, launch kick
+        cell, frac = [], []
+        for ax, p in enumerate((xb, yb, za)):
+            t = _div(p - origin[ax], d[ax])
+            c = initial_cell_t(t, nvec[ax])
+            cell.append(c)
+            frac.append(t - c.to(t.dtype))
+        flat = ((cell[0].to(torch.int64) * cfg.ny + cell[1]) * cfg.nz
+                + cell[2])
+        wk = _div(w_node.index_select(0, flat), k.OMEGA)
+        vel = tuple(_div((-(k.C_CMS ** 2) * col[4 + ax]) * wk * cfg.dt, d[ax])
+                    for ax in range(3))
+        rows = field4.index_select(0, flat)
+        return RayState(
+            frac=tuple(frac), vel=vel,
+            kick=tuple(rows[:, ax] for ax in range(3)),
+            uray=torch.where(mask, uray, 0.0),
+            uray_init=torch.where(mask, uray, 1.0),
+            cell=tuple(cell), alive=mask)
+
+    return init
+
+
+def prepare_device(cfg: Config, prof: RadialProfiles | None = None,
+                   beam_norm: np.ndarray | None = None,
+                   device=None) -> TraceContext:
+    """On-card Init (``models/raytracer.py:566``): like :func:`prepare`,
+    but the per-ray state is built on ``device`` (default: the card when
+    there is one) by :func:`make_device_init`, in float64, and cast once to
+    the config's dtype.  ``state0`` is already the live-tile, per-beam
+    block-padded traced state of :func:`live_tile_ids`, ``live_slots`` spans
+    all of it, ``beam_id`` is -1 on pad slots and ``compact`` is True.  Host
+    work is O(grid + nrays), not O(nbeams * nrays)."""
+    device = torch.device(device) if device is not None else default_device()
+    if prof is None:
+        prof = load_profiles(nr=cfg.nr)
+    if beam_norm is None:
+        beam_norm = load_beam_norms(nbeams=cfg.nbeams)
+    fields = build_fields(cfg, prof)
+    layout = build_tile_layout(cfg)
+    f4 = _field_table(cfg, fields)
+
+    bn = beam_norm / np.linalg.norm(beam_norm, axis=1, keepdims=True)
+    theta1 = np.arccos(beam_norm[:, 2])
+    theta2 = np.arctan2(beam_norm[:, 1] * cfg.focal_length,
+                        cfg.focal_length * beam_norm[:, 0])
+    beam_tab = np.stack([np.cos(theta1), np.sin(theta1),
+                         np.cos(theta2), np.sin(theta2),
+                         bn[:, 0], bn[:, 1], bn[:, 2]], axis=1)
+    ids, valid = live_tile_ids(cfg, layout)
+    x0, y0, uray1, mask1 = site_launch(cfg, power_table(cfg))
+    w_node = np.sqrt(np.maximum(k.OMEGA ** 2 - fields.wsq_term.reshape(-1),
+                                0.0)) / k.C_CMS
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    field4_64 = up(f4)
+    state = make_device_init(cfg, layout)(
+        field4_64, up(w_node), up(beam_tab),
+        up(np.stack([x0, y0, uray1], axis=1)), up(mask1), up(ids),
+        up(valid))
+    dtype = getattr(torch, cfg.dtype)
+    state0 = state.map(lambda a: (a.to(dtype) if a.is_floating_point()
+                                  else a).contiguous())
+    beam_id = np.repeat(np.where(valid, ids // layout.tiles_per_beam, -1),
+                        layout.rays_per_tile).astype(np.int32)
+    return TraceContext(
+        cfg=cfg, prof=prof, beam_norm=beam_norm, fields=fields, rays=None,
+        layout=layout, field4=field4_64.to(dtype), state0=state0,
+        beam_id=beam_id, live_slots=np.arange(state0.n, dtype=np.int64),
+        compact=True)
 
 
 def select_rays(state: RayState, indices) -> RayState:
@@ -338,9 +547,10 @@ def resolve_deposit_fn(cfg: Config, device) -> Callable:
     return deposit
 
 
-def make_trace_fn(cfg: Config, deposit_fn: Callable | None = None):
+def make_trace_fn(cfg: Config, deposit_fn: Callable | None = None,
+                  compact: bool = False):
     """Build the full-trace function
-    ``(field4, state0) -> (edep, final_state, overflow, steps)``.
+    ``(field4, state0, widths=None) -> (edep, final_state, overflow, steps)``.
 
     Runs ``nt`` steps in chunks of ``chunk_steps``; each chunk deposits into
     a grid of the ray dtype and promotes it into an ``edep_dtype`` master
@@ -349,6 +559,12 @@ def make_trace_fn(cfg: Config, deposit_fn: Callable | None = None):
     per chunk).  ``overflow`` is the 0-dim int32 count of deposits outside
     the grid (0 in any valid configuration); ``steps`` the number of steps
     executed, i.e. of deposit calls.
+
+    ``compact`` drops dead tiles at chunk boundaries
+    (``models/tileplan.py``; ``state0`` must be whole tiles): the same edep,
+    and the same final state, written back to ``state0``'s layout.  A list
+    passed as ``widths`` receives the tile counts before the trace and after
+    each compaction.
 
     ``deposit_fn`` overrides the config's deposit (used to time or compare
     the kernel against its plain version); by default it is resolved from
@@ -359,16 +575,20 @@ def make_trace_fn(cfg: Config, deposit_fn: Callable | None = None):
     n_chunks = -(-cfg.nt // chunk)          # ceil
     master_dtype = getattr(torch, cfg.edep_dtype)
 
-    def trace(field4: torch.Tensor, state0: RayState):
+    def trace(field4: torch.Tensor, state0: RayState, widths=None):
         device = state0.uray.device
         dep = deposit_fn or resolve_deposit_fn(cfg, device)
         compute_dtype = state0.uray.dtype
         master = torch.zeros(shape3, dtype=master_dtype, device=device)
         oflow = torch.zeros((), dtype=torch.int32, device=device)
+        comp = (TileCompactor(state0, rays_per_tile(cfg)) if compact
+                else None)
         state, steps = state0, 0
         for ci in range(n_chunks):
             if not bool(state.alive.any()):
                 break
+            if comp is not None:
+                state, _ = comp.update(state, first=ci == 0)
             n_steps = min(chunk, cfg.nt - ci * chunk)
             edep = torch.zeros(shape3, dtype=compute_dtype, device=device)
             for _ in range(n_steps):
@@ -377,20 +597,33 @@ def make_trace_fn(cfg: Config, deposit_fn: Callable | None = None):
                 oflow += of
             steps += n_steps
             master += edep.to(master_dtype)
+        if comp is not None:
+            state = comp.final(state)
+            if widths is not None:
+                widths.extend(comp.widths)
         return master, state, oflow, steps
 
     return trace
 
 
-def trace(ctx: TraceContext, device=None):
-    """Convenience full trace of the live tiles on ``device`` (default: the
-    CPU).  Returns (edep [np.f64 padded], final RayState over live slots)."""
+def traced_state(ctx: TraceContext, device) -> RayState:
+    """The state a run traces on ``device``: a compact context's state0 as
+    it is, else the live-tile slots of the host state, padded to whole
+    tiles."""
+    if ctx.compact:
+        return ctx.state0.to(device)
     from ..parallel.sharding import pad_rays
+    return pad_rays(select_rays(ctx.state0, ctx.live_slots),
+                    ctx.layout.rays_per_tile).to(device)
+
+
+def trace(ctx: TraceContext, device=None, compact: bool = False):
+    """Convenience full trace of the live tiles on ``device`` (default: the
+    CPU), compacted mid-trace with ``compact``.  Returns (edep [np.f64
+    padded], final RayState over the traced slots)."""
     device = torch.device(device or "cpu")
-    state0 = pad_rays(select_rays(ctx.state0, ctx.live_slots),
-                      ctx.layout.rays_per_tile).to(device)
-    edep, state, oflow, _ = make_trace_fn(ctx.cfg)(
-        ctx.field4.to(device), state0)
+    edep, state, oflow, _ = make_trace_fn(ctx.cfg, compact=compact)(
+        ctx.field4.to(device), traced_state(ctx, device))
     check_overflow(int(oflow), ctx.cfg)
     return edep.to("cpu", torch.float64).numpy(), state
 
@@ -411,8 +644,10 @@ def trace_stats(ctx: TraceContext, state: RayState,
     accounting and energy bookkeeping.
 
     ``state0`` is the initial state actually traced (it may be a live-tile
-    subset of ``ctx.state0``, possibly padded); defaults to ``ctx.state0``.
-    The two states must have the same slot count."""
+    subset of ``ctx.state0``, possibly padded); defaults to ``ctx.state0``,
+    which a compact context (``prepare_device``) traces as it is.  The two
+    states must have the same slot count; a compacted trace returns its
+    final state in its ``state0``'s layout, so it needs no slot map."""
     if state0 is None:
         state0 = ctx.state0
     if state0.n != state.n:

@@ -4,9 +4,9 @@ upload) -> Tracing (device compute) -> Combining (grid download), with the
 reference's phase-timing report, plus run metrics and output writing.
 
 Counterpart of ``cbet_raytracing_3d_tpu/runner.py::run`` and
-``write_outputs`` on one device, with the optional CBET stage: no mesh, no
-tile plan.  The trace and the CBET solve run over the live tiles,
-unsegmented.
+``write_outputs`` on one device, with the optional CBET stage: no mesh.
+The trace and the CBET solve run over the live tiles, compacted mid-trace
+when a cache dir is given (the JAX CLI's default).
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ from .config import Config
 from .models import raytracer as rt
 from .models.cbet import cbet_solve, check_cbet_config
 from .models.raytracer import default_device
-from .parallel.sharding import pad_rays
 from .utils.output import HAVE_H5PY, save_hdf5, save_npz
 from .utils.timers import PhaseTimers
 
@@ -42,11 +41,13 @@ def estimate_device_bytes(cfg: Config, with_cbet: bool = False) -> int:
     """Device memory a run needs: the counterpart of the JAX package's
     ``estimate_hbm_bytes`` for the port's layout.
 
-    * the traced ray state (11 float + 3 int32 + 1 bool per slot) and the
-      step's temporaries (about three more states' worth),
+    * the traced ray state (11 float + 3 int32 + 1 bool per slot), the
+      step's temporaries (about three more states' worth) and a compacted
+      trace's write-back copy (one more),
     * the (P, 4) field table,
     * the grids: the ``edep_dtype`` master and the chunk grid,
-    * CBET: the solver's copy of the state; the (B, Ph) intensity iterates
+    * CBET: the solver's copy of the state and its traces' write-back
+      copy; the (B, Ph) intensity iterates
       in the ray dtype (current, new, blend, the zero-gain seed) with the
       float32 copy the gain reads and the float32 gain it returns; the
       (B, P) gain table in the ray dtype (plus the float32 upsampling
@@ -66,11 +67,11 @@ def estimate_device_bytes(cfg: Config, with_cbet: bool = False) -> int:
     nxp, nyp, nzp = cfg.edep_shape
     master_bytes = 8 if cfg.edep_dtype == "float64" else 4
     grids = nxp * nyp * nzp * (master_bytes + fbytes)
-    total = 4 * n * state_bytes + P * 4 * fbytes + grids
+    total = 5 * n * state_bytes + P * 4 * fbytes + grids
     if with_cbet:
         hx, hy, hz = cfg.cbet_grid_shape
         B = cfg.nbeams
-        total += n * state_bytes
+        total += 2 * n * state_bytes
         total += B * hx * hy * hz * (4 * fbytes + 2 * 4) + B * P * fbytes
         if cfg.cbet_grid_downsample > 1:
             total += 2 * B * P * 4
@@ -105,28 +106,43 @@ def check_memory(cfg: Config, device, with_cbet: bool = False) -> None:
 
 
 def run(cfg: Config, *, with_cbet: bool = False, device=None,
-        verbose: bool = True) -> RunResult:
+        verbose: bool = True, cache_dir: str | None = None) -> RunResult:
     """Full simulation run with reference-parity phase accounting, on
     ``device`` (default: the card when there is one, else the CPU).
     ``with_cbet`` adds the "CBET" phase: the fixed-point solve over the same
-    scene (``RunResult.cbet``)."""
+    scene (``RunResult.cbet``).
+
+    As ``runner.py:166-250`` of the JAX package: on the card the rays are
+    initialized there (``prepare_device``), on the CPU by the host
+    ``prepare``; with a ``cache_dir`` the trace drops dead tiles mid-trace
+    with final-state write-back (``stats["segmented"]``, the tile counts in
+    ``stats["tile_widths"]``) and the CBET solve runs with
+    ``cbet_segmented=True``.  The port writes nothing into ``cache_dir``:
+    its compaction needs no plan to cache."""
     device = torch.device(device) if device is not None else default_device()
+    segmented = cache_dir is not None
     if with_cbet:
         check_cbet_config(cfg)          # refuse before the trace runs
     check_memory(cfg, device, with_cbet)
     timers = PhaseTimers(device)
 
     with timers.phase("Init"):
-        # host prepare in float64 NumPy, then one upload of the live-tile
-        # state and the field table
-        ctx = rt.prepare(cfg)
-        state0 = pad_rays(rt.select_rays(ctx.state0, ctx.live_slots),
-                          ctx.layout.rays_per_tile).to(device)
+        if device.type == "cuda":
+            # on-card init (the reference's init() is device code,
+            # launch_ray_XZ.cu:65-115): the state is born live-tile
+            # compacted on the card
+            ctx = rt.prepare_device(cfg, device=device)
+        else:
+            # host prepare in float64 NumPy, then one upload of the
+            # live-tile state and the field table
+            ctx = rt.prepare(cfg)
+        state0 = rt.traced_state(ctx, device)
         field4 = ctx.field4.to(device)
-        fn = rt.make_trace_fn(cfg)
+        fn = rt.make_trace_fn(cfg, compact=segmented)
 
+    widths = []
     with timers.phase("Tracing"):
-        edep_dev, state, oflow, steps = fn(field4, state0)
+        edep_dev, state, oflow, steps = fn(field4, state0, widths)
     with timers.phase("Combining"):
         edep = edep_dev.to("cpu", torch.float64).numpy()
         oflow = int(oflow)
@@ -137,11 +153,14 @@ def run(cfg: Config, *, with_cbet: bool = False, device=None,
     stats["edep_total"] = float(edep.sum())
     stats["devices"] = 1
     stats["steps_executed"] = steps
+    stats["segmented"] = segmented
+    stats["tile_widths"] = widths
 
     cbet_result = None
     if with_cbet:
         with timers.phase("CBET"):
-            cbet_result = cbet_solve(cfg, ctx, device=device)
+            cfg_c = cfg.replace(cbet_segmented=True) if segmented else cfg
+            cbet_result = cbet_solve(cfg_c, ctx, device=device)
 
     timings = timers.as_dict()
     if verbose:

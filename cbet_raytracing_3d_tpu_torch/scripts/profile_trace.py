@@ -1,0 +1,106 @@
+"""Where a trace's time goes on the card: the OMEGA trace and one CBET
+trace, each uncompacted and compacted, timed and profiled.
+
+    python -m cbet_raytracing_3d_tpu_torch.scripts.profile_trace
+
+For each trace: one warm-up, the median of 3 synchronized wall times (the
+traces run in turns, forward then backward, so that drift on the shared host
+falls on all of them), then one run under ``torch.profiler``: the device's
+busy time (the sum of the kernels' device time), its idle share against the
+unprofiled median, the kernels that took most of it, and the host's aten
+operator count.  The rays are initialized on the card
+(``prepare_device``); the CBET trace is the kernel_cell solver's trace at
+zero gain.  Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import statistics
+import sys
+import time
+
+import torch
+
+from ..config import Config
+from ..models import cbet
+from ..models import raytracer as rt
+from .bench_mma_shapes import card_line
+
+
+def walls_in_turns(cases: dict, rounds: int = 3) -> dict:
+    """Synchronized wall seconds of each case, after one warm-up each,
+    ``rounds`` times in turns (forward, backward, forward, ...)."""
+    names = list(cases)
+    walls = {name: [] for name in names}
+    for name in names:
+        cases[name]()
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cases[name]()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t)
+    return walls
+
+
+def profile(fn, walls: list, top: int = 6) -> dict:
+    """The device time of one profiled call of ``fn``: busy seconds, the
+    idle share against the median of ``walls``, and the ``top`` kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # the device's own events (kernels, copies): the host operators that
+    # launched them carry the same time again
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 1e6
+    wall = statistics.median(walls)
+    # the host's work: the aten operators it ran (nested ones included)
+    ops = sum(e.count for e in prof.key_averages()
+              if e.key.startswith("aten::"))
+    return {"wall": wall, "walls": walls, "busy": busy,
+            "idle": 1.0 - busy / wall, "top": rows[:top], "host_ops": ops}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_trace: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    cfg = Config()
+    print(f"device={torch.cuda.get_device_name(0)}; nvidia-smi: "
+          f"{card_line()}; torch {torch.__version__}", flush=True)
+    ctx = rt.prepare_device(cfg, device=dev)
+    cases = {}
+    for compact in (False, True):
+        fn = rt.make_trace_fn(cfg, compact=compact)
+        cases[f"trace {'compacted' if compact else 'uncompacted'}"] = (
+            lambda fn=fn: fn(ctx.field4, ctx.state0))
+        c = cfg.replace(cbet_gain_mode="kernel_cell", cbet_segmented=compact)
+        solver = cbet._get_solver(c, ctx, dev, cbet.kernel_ops())
+        gain = solver.make_zero_gain()
+        cases[f"kernel_cell CBET trace "
+              f"{'compacted' if compact else 'uncompacted'}"] = (
+            lambda s=solver, g=gain: s.trace(g))
+    walls = walls_in_turns(cases)
+    for name, fn in cases.items():
+        r = profile(fn, walls[name])
+        print(f"{name}: wall median {r['wall']:.6f} s of "
+              f"{[round(x, 6) for x in r['walls']]}; device busy "
+              f"{r['busy']:.6f} s, idle {100 * r['idle']:.1f} %; host aten ops "
+              f"{r['host_ops']}", flush=True)
+        for key, us, count in r["top"]:
+            print(f"    {us / 1e3:10.3f} ms {100 * us / 1e6 / r['busy']:5.1f} %"
+                  f"  x{count:<6d} {key[:90]}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

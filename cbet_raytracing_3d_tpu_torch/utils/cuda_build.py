@@ -145,5 +145,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     # (pair_u, rhat_pre, intensity, out, bo, B, P, iaw2, stream)
     lib.cbet_gain_f32.argtypes = [p, p, p, p, i, i, ll, f, p]
     lib.cbet_gain_f32.restype = ctypes.c_int
+    # (a, b, out, m, k, n, reps, transpose_lhs, grid, stream)
+    lib.cbet_mma_probe_bf16.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.cbet_mma_probe_bf16.restype = ctypes.c_int
     lib.cbet_error_string.argtypes = [ctypes.c_int]
     lib.cbet_error_string.restype = ctypes.c_char_p

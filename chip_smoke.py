@@ -14,13 +14,14 @@ Phases (one line each; any failure exits non-zero before the last line):
 3. kernel vs plain: the deposit kernel against its plain PyTorch version on
    the same rows, at the main path's row count on the OMEGA 102^3 grid
    (coherent tiles, boundary exit rows, dead rows) in f32 and f64, and on an
-   nz = 130 grid; times both.
+   nz = 130 grid (K5's case); times both in f32, beside the bound.
 4. config-1 golden: float64 trace on the card through the kernel against
    ``tests/golden/config1_oracle.npz``.
 5. OMEGA main path: ``runner.run(Config())`` on the card (60 beams, 19,600
-   rays each, 100^3 nodes, f32 rays, f64 master) against the same run in
-   float64 (the exact reference) and against ``artifacts/omega_golden.npz``;
-   the kernel's launch count must equal the steps executed.
+   rays each, 100^3 nodes, f32 rays, f64 master; the rays initialized on
+   the card, ``prepare_device``) against the same run in float64 (the exact
+   reference) and against ``artifacts/omega_golden.npz``; the kernel's
+   launch count must equal the steps executed.
 6. timing: median of 3 synchronized full traces with the kernel and with the
    plain version, in turns.
 7. determinism: rel-L2 between two kernel traces (float atomics reorder).
@@ -56,9 +57,30 @@ Phases (one line each; any failure exits non-zero before the last line):
    (d) ``cbet_gain_stride=5`` in lookup: its deviation from the stride-1
    solve as a share of the CBET effect, below 0.6; (e) one lookup trace
    with the per-step deposits against the batched one, in turns.
+14. device init: ``prepare_device`` on the card against the host
+   ``prepare`` at OMEGA, f64 and f32: launched masks and cells identical,
+   float values equal (at most 1e-4 of them 1 ulp apart), ``beam_id`` -1
+   exactly on pads; seconds of both paths, first and second call.
+15. the compacted OMEGA trace (the JAX CLI's default: ``runner.run(cfg,
+   cache_dir=...)``) against ``runner.run(cfg)``: f64 <= 1e-12 rel-L2, f32
+   within 2x phase 7's drift, ``trace_stats`` counts identical, energy
+   conserved, K1 launches = steps; the tile widths; both traces timed,
+   median of 3 in turns.
+16. the compacted CBET solve (the JAX bench's kernel_cell with
+   ``cbet_segmented=True``, ``cbet_plan_headroom=0.5``; and lookup), f32,
+   through the runner with a cache dir: 5 iterations, history within 1e-3
+   of phases 9/10, edep and intensity within max(1e-6, 2x phase 13's drift),
+   K2/K4 launches = windows; f64 kernel_cell <= 1e-10; seeded solves
+   compacted and uncompacted, median of 3 in turns.
+17. K6, the tensor-core probe, against its plain version at the six shapes
+   of ``scripts/bench_mxu_shapes.py`` (rel-L2 <= 1e-5), timed beside
+   ``torch.matmul`` in bf16; ``bench_mma_shapes`` in this process (its
+   launches) and as a subprocess (rc 0).
 
-Then one JSON line describing the kernels, the ``nvidia-smi`` line, and the
-final ``{"ok": true, "device": ...}`` line.
+Then one JSON line describing the kernels (each with its bound on this card:
+the larger of its bytes over 3.35 TB/s and its operations over the peak of
+their type), the ``nvidia-smi`` line, and the final ``{"ok": true,
+"device": ...}`` line.
 """
 
 from __future__ import annotations
@@ -188,14 +210,102 @@ def gain_case(rng, cfg, ctx, device):
             torch.as_tensor(inten, dtype=torch.float32, device=device))
 
 
-def cuda_ms(fn, reps: int) -> float:
+# The card's published rates (H100 SXM at 700 W; NVIDIA's data sheet): HBM3
+# bytes/s, and flop/s of float32 outside the tensor cores and of dense bf16
+# on them.  A bound is the larger of the bytes a call must move (each input
+# read once, each output written once) over the memory rate and its
+# operations over the peak rate of their type.
+HBM_BPS = 3.35e12
+PEAK_F32 = 67e12
+# operations of one live deposit row: the three weights and their
+# complements (12), the eight corner products inc*wx*wy*wz (24) and the
+# eight adds of the atomics (8)
+DEPOSIT_OPS = 44
+# a window-gain step adds the gain factor (g*ds, clip, exp, the cumulative
+# product, the termination test: 6) to the deposit's operations; the tri
+# form samples eight corners (16 more); the gain-only forms skip the adds
+GAIN_STEP_OPS = 6
+TRI_SAMPLE_OPS = 16
+
+
+def bound(nbytes: float, nops: float, peak: float) -> dict:
+    """``bound_ms`` and ``bound_by`` of a call that moves ``nbytes`` and
+    does ``nops`` operations at ``peak`` operations/s."""
+    t_bytes, t_ops = nbytes / HBM_BPS, nops / peak
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def touched(grid) -> int:
+    """Grid nodes a deposit wrote (non-zero after a deposit into zeros):
+    each is read and written once."""
+    return int((grid != 0).sum())
+
+
+def gain_nodes(cfg, cells, fracs, live, rows_per_group, tri: bool) -> int:
+    """Distinct (beam, node) entries of the (B, P) gain table that a window
+    reads: at the sampled cell of each live row, or ("tri") at the eight
+    in-grid corners of its deposit position."""
+    import torch
+    from cbet_raytracing_3d_tpu_torch.ops import deposit as dep
+    nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
+    flat_rows = [a.reshape(-1) for a in cells]
+    n_rays = cells[0].shape[-1]
+    beam = ((torch.arange(flat_rows[0].shape[0], device=live.device)
+             % n_rays) // rows_per_group)
+    live = live.reshape(-1)
+    if not tri:
+        cx, cy, cz = (a.to(torch.int64) for a in flat_rows)
+        keys = (beam * (nx * ny * nz) + (cx * ny + cy) * nz + cz)[live]
+    else:
+        fx, fy, fz = (a.reshape(-1) for a in fracs)
+        nxp, nyp, nzp = cfg.edep_shape
+        idx, _, ok = dep._corner_parts(*flat_rows, fx, fy, fz,
+                                       torch.ones_like(fx), cfg.edep_shape)
+        x = idx // (nyp * nzp) - 1
+        y = (idx // nzp) % nyp - 1
+        z = idx % nzp - 1
+        inside = ((x >= 0) & (x < nx) & (y >= 0) & (y < ny) & (z >= 0)
+                  & (z < nz) & (live & ok)[:, None])
+        keys = (beam[:, None] * (nx * ny * nz)
+                + (x * ny + y) * nz + z)[inside]
+    return int(torch.unique(keys).numel())
+
+
+def k4_bound(cfg, args, gain_out, grid, tri: bool, gain_only: bool) -> dict:
+    """The window-gain deposit's bound from one call's arguments (``args``
+    after ``edep``), its gamma and the plain version's grid from zeros."""
+    streams = args[:9] if tri else args[:9] + args[10:13]
+    n_steps, n = args[0].shape
+    rpg = args[11] if tri else args[14]
+    live = args[7] != 0                        # ds: alive at step entry
+    if tri:
+        nodes = gain_nodes(cfg, args[0:3], args[3:6], live, rpg, True)
+    else:
+        nodes = gain_nodes(cfg, args[10:13], None, live, rpg, False)
+    nbytes = (4 * len(streams) * n_steps * n + 4 * n + 4 * nodes
+              + 4 * gain_out.numel() + 4 * n)
+    ops_row = GAIN_STEP_OPS + DEPOSIT_OPS + (TRI_SAMPLE_OPS if tri else 0)
+    if not gain_only:
+        nbytes += 8 * touched(grid)
+    else:
+        ops_row -= 8
+    return bound(nbytes, ops_row * int(live.sum()), PEAK_F32)
+
+
+def cuda_ms(fn, reps: int, queued: bool = False) -> float:
     """Mean milliseconds of ``fn()`` on the card over ``reps`` calls, timed
-    with CUDA events after one warm-up call."""
+    with CUDA events after one warm-up call.  ``queued`` holds the stream
+    with a device-side sleep (~25 ms) while the host enqueues the calls, so
+    calls shorter than their launch run back to back and the time is the
+    device's, not the host's launch rate."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -275,13 +385,20 @@ def main() -> int:
             line = (f"grid {shape} {str(dt)[6:]} rows {n_rows}: rel-L2 "
                     f"{err:.3e} total-rel {tot:.3e} max-abs {max_abs:.6e} "
                     "overflow 0")
-            if f32 and shape == cfg.edep_shape:
+            if f32:
+                # rows: 3 int32 cells, 3 fracs and inc; the nodes written
+                kb = bound(28 * n_rows + 8 * touched(want),
+                           DEPOSIT_OPS * int((args[6] != 0).sum()), PEAK_F32)
                 grid_k = torch.zeros(shape, dtype=dt, device=dev)
                 ms = cuda_ms(lambda: dep.deposit(grid_k, *args), 20)
                 ms_p = cuda_ms(lambda: dep.deposit_reference(grid_k, *args),
                                20)
-                kern = {"max_abs_err": max_abs, "ms": ms, "plain_ms": ms_p}
-                line += f"; kernel {ms:.4f} ms plain {ms_p:.4f} ms per call"
+                if shape == cfg.edep_shape:
+                    kern = {"max_abs_err": max_abs, "ms": ms,
+                            "plain_ms": ms_p, **kb, "library_ms": None}
+                line += (f"; kernel {ms:.4f} ms plain {ms_p:.4f} ms per "
+                         f"call, bound {kb['bound_ms']:.4f} ms "
+                         f"({kb['bound_by']})")
             say("3 kernel-vs-plain", line)
             del args, got, want
 
@@ -379,6 +496,7 @@ def main() -> int:
     from cbet_raytracing_3d_tpu_torch.models import cbet
     from cbet_raytracing_3d_tpu_torch.ops import gain as gop
     from cbet_raytracing_3d_tpu_torch.ops import gain_deposit as gdep
+    from cbet_raytracing_3d_tpu_torch.ops import mma_probe as mp
     rows8, kern8 = cbet_kernels_vs_plain(cfg, ctx, dev, rng)
     for line in rows8:
         say("8 cbet-kernels", line)
@@ -387,7 +505,8 @@ def main() -> int:
     counters = (("K1", dep, "LAUNCHES"), ("K2", dep, "GROUPED_LAUNCHES"),
                 ("K3", gop, "LAUNCHES"), ("K4", gdep, "LAUNCHES"),
                 ("K4 tri", gdep, "TRI_LAUNCHES"),
-                ("K4 gain-only", gdep, "GAIN_ONLY_LAUNCHES"))
+                ("K4 gain-only", gdep, "GAIN_ONLY_LAUNCHES"),
+                ("K6", mp, "LAUNCHES"))
 
     def zero_counts():
         for _, mod, attr in counters:
@@ -560,6 +679,28 @@ def main() -> int:
     for line in rows13:
         say("13 cbet-optins", line)
 
+    # 14. the on-card init against the host prepare
+    for line in device_init(dev):
+        say("14 device-init", line)
+
+    # 15. the JAX CLI's default trace: on-card init, compacted trace
+    rows15, n15 = compacted_trace(cfg, dev, drift, zero_counts, read_counts,
+                                  smi)
+    for line in rows15:
+        say("15 compacted-trace", line)
+
+    # 16. the JAX bench's CBET: compacted kernel_cell (and lookup)
+    rows16, n16 = compacted_cbet(cfg, dev, {
+        "kernel_cell": k32, "lookup": c32, "kernel_cell_f64": k64},
+        n13["drift"], zero_counts, read_counts, smi)
+    for line in rows16:
+        say("16 compacted-cbet", line)
+
+    # 17. K6, the tensor-core probe, and its entry point
+    rows17, kern17, n17 = mma_probe_phase(dev, zero_counts, read_counts, smi)
+    for line in rows17:
+        say("17 mma-probe", line)
+
     src = f"{PKG}/csrc"
     kernels = [
         {"name": "deposit", "route": "cuda", "source": f"{src}/deposit.cu",
@@ -584,6 +725,9 @@ def main() -> int:
          "source": f"{src}/gain_deposit.cu",
          "replaces": "cbet_raytracing_3d_tpu/ops/pallas_deposit.py:687",
          "launches": n13["gain_only"], **kern12["cell gain-only"]},
+        {"name": "mma_probe", "route": "cuda", "source": f"{src}/mma_probe.cu",
+         "replaces": "scripts/bench_mxu_shapes.py:21", "launches": n17,
+         **kern17},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -639,10 +783,13 @@ def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
                 f"{err:.3e} max-abs {mx:.6e} (< {tol:g}); over-count "
                 "refused")
         if dt == torch.float32:
+            kb = bound(28 * n + 8 * touched(want),
+                       DEPOSIT_OPS * int((args[6] != 0).sum()), PEAK_F32)
             ms = cuda_ms(lambda: dep.deposit_grouped(got, *args, rpg), 20)
             ms_p = cuda_ms(
                 lambda: dep.deposit_grouped_reference(want, *args, rpg), 5)
-            kern["K2"] = {"max_abs_err": mx, "ms": ms, "plain_ms": ms_p}
+            kern["K2"] = {"max_abs_err": mx, "ms": ms, "plain_ms": ms_p,
+                          **kb, "library_ms": None}
             line += f"; kernel {ms:.4f} ms plain {ms_p:.4f} ms per call"
         lines.append(line)
         del args, got, want
@@ -661,10 +808,17 @@ def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
                 f"{err:.3e} max-abs {mx:.6e} (< 1e-5; the whole difference "
                 "is nvcc's FMA contraction)")
         if bo == cfg.nbeams:
+            B, P = inten.shape
+            # pair_u, rhat_pre and I read once, G written once; 14 float32
+            # operations per (b, b', p) (eta 5, the resonance 7 with the
+            # division as one, the product and sum 2)
+            kb = bound(4 * (pu.numel() + rp.numel() + 2 * B * P),
+                       14 * B * B * P, PEAK_F32)
             pu_c = pu.contiguous()
             ms = cuda_ms(lambda: gop.gain(pu_c, rp, inten), 10)
             ms_p = cuda_ms(lambda: gop.gain_reference(pu_c, rp, inten), 3)
-            kern["K3"] = {"max_abs_err": mx, "ms": ms, "plain_ms": ms_p}
+            kern["K3"] = {"max_abs_err": mx, "ms": ms, "plain_ms": ms_p,
+                          **kb, "library_ms": None}
             line += f"; kernel {ms:.4f} ms plain {ms_p:.4f} ms per call"
         lines.append(line)
     del pu, rp, inten
@@ -699,12 +853,13 @@ def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
                 f"{errs[2][0]:.3e} (< {tol:g}); alive identical; "
                 f"{mid} rays die mid-window")
         if dt == torch.float32:
+            kb = k4_bound(cfg, args, gam_p, e_p, tri=False, gain_only=False)
             grid = torch.zeros(cfg.edep_shape, dtype=dt, device=dev)
             ms = cuda_ms(lambda: gdep.deposit_gain_window(grid, *args), 20)
             ms_p = cuda_ms(
                 lambda: gdep.deposit_gain_window_reference(grid, *args), 5)
             kern["K4"] = {"max_abs_err": max(e[1] for e in errs), "ms": ms,
-                          "plain_ms": ms_p}
+                          "plain_ms": ms_p, **kb, "library_ms": None}
             line += f"; kernel {ms:.4f} ms plain {ms_p:.4f} ms per call"
         lines.append(line)
         del gain, args, st
@@ -773,11 +928,14 @@ def optin_kernels_vs_plain(cfg, ctx, dev):
                     + f" (< {tol:g}); alive identical; {mid} rays die "
                     "mid-window; overflow 0")
             if dt == torch.float32:
+                kb = k4_bound(cfg, a, g_p, e_p - e0, tri=name.startswith(
+                    "tri"), gain_only=gain_only)
                 grid = e0.clone()
                 ms = cuda_ms(lambda: fn(grid, *a, gain_only=gain_only), 20)
                 ms_p = cuda_ms(lambda: ref(grid, *a, gain_only=gain_only), 5)
                 kern[name] = {"max_abs_err": max(e[1] for e in errs),
-                              "ms": ms, "plain_ms": ms_p}
+                              "ms": ms, "plain_ms": ms_p, **kb,
+                              "library_ms": None}
                 line += f"; kernel {ms:.4f} ms plain {ms_p:.4f} ms per call"
             lines.append(line)
         del gain, args, tri_args, st
@@ -960,7 +1118,281 @@ def cbet_optins(cfg, dev, smi, zero_counts, read_counts, ref):
     if not all(checks.values()):
         raise RuntimeError("OMEGA CBET opt-ins failed: "
                            f"{[k for k, v in checks.items() if not v]}")
-    return lines, {"tri": na["K4 tri"], "gain_only": nb_["K4 gain-only"]}
+    return lines, {"tri": na["K4 tri"], "gain_only": nb_["K4 gain-only"],
+                   "drift": drift}
+
+
+def device_init(dev):
+    """Phase 14: ``prepare_device`` on the card against the host
+    ``prepare`` at OMEGA, float64 and float32, first and second call."""
+    import torch
+    from cbet_raytracing_3d_tpu_torch.config import Config
+    from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
+
+    lines = []
+    for dt in ("float64", "float32"):
+        cfg = Config(dtype=dt)
+        secs = {"host": [], "card": []}
+        for _ in range(2):
+            t = time.perf_counter()
+            ctx_h = rt.prepare(cfg)
+            secs["host"].append(time.perf_counter() - t)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ctx_d = rt.prepare_device(cfg, device=dev)
+            torch.cuda.synchronize()
+            secs["card"].append(time.perf_counter() - t)
+        rpt = ctx_h.layout.rays_per_tile
+        ids, valid = rt.live_tile_ids(cfg, ctx_h.layout)
+        state_h = rt.select_rays(ctx_h.state0, rt.tile_slots(ids[valid], rpt))
+        sel = np.nonzero(np.repeat(valid, rpt))[0]
+        state_d = rt.select_rays(ctx_d.state0, sel).to("cpu")
+        m = state_h.alive
+        cells = all(torch.equal(a[m], b[m]) for a, b in
+                    zip(state_d.cell, state_h.cell))
+        n_vals = n_diff = n_far = 0
+        for name in ("frac", "vel", "kick"):
+            for a, b in zip(getattr(state_d, name), getattr(state_h, name)):
+                a, b = a[m], b[m]
+                diff = a != b
+                n_vals += a.numel()
+                n_diff += int(diff.sum())
+                # more than one ulp apart
+                n_far += int((diff & (torch.nextafter(b, a) != a)).sum())
+        ur = state_d.uray[m] != state_h.uray[m]
+        n_vals += int(m.sum())
+        n_diff += int(ur.sum())
+        pads = np.array_equal(ctx_d.beam_id == -1, np.repeat(~valid, rpt))
+        ok = (torch.equal(state_d.alive, m) and cells and pads
+              and n_far == 0 and n_diff <= 1e-4 * n_vals
+              and ctx_d.compact and ctx_d.state0.uray.is_cuda)
+        line = (f"{dt}: {int(m.sum())} launched of {ctx_d.state0.n} slots; "
+                f"masks and cells identical; float values differing "
+                f"{n_diff} of {n_vals} (bar: <= 1e-4 of them, each by 1 "
+                f"ulp), more than 1 ulp {n_far}; beam_id -1 exactly on "
+                f"pads {pads}; seconds host prepare "
+                f"{[round(x, 6) for x in secs['host']]}, card "
+                f"{[round(x, 6) for x in secs['card']]} (first, second)")
+        if not ok:
+            raise RuntimeError(f"device init failed: {line}")
+        lines.append(line)
+    return lines
+
+
+def compacted_trace(cfg, dev, drift, zero_counts, read_counts, smi):
+    """Phase 15: ``runner.run(cfg, cache_dir=...)`` (the on-card init, the
+    compacted trace) against ``runner.run(cfg)``, f64 and f32, then the
+    two traces timed in turns.  Returns (lines, K1 launches)."""
+    import torch
+    from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
+    from cbet_raytracing_3d_tpu_torch.runner import run
+
+    cache = os.path.join(REPO, ".cbet_cache")
+    had_cache = os.path.exists(cache)
+    zero_counts()
+    seg = run(cfg, device=dev, verbose=False, cache_dir=cache)
+    n15 = read_counts()
+    plain = run(cfg, device=dev, verbose=False)
+    c64 = cfg.replace(dtype="float64")
+    seg64 = run(c64, device=dev, verbose=False, cache_dir=cache)
+    plain64 = run(c64, device=dev, verbose=False)
+    st = seg.stats
+    d32 = rel_l2(seg.edep, plain.edep)
+    d64 = rel_l2(seg64.edep, plain64.edep)
+    cons = abs(st["edep_total"] - st["energy_absorbed"]) / st["energy_absorbed"]
+    keys = ("rays_launched", "rays_terminated", "rays_alive_at_end")
+    checks = {
+        "segmented, >= 2 compactions": st["segmented"]
+        and not plain.stats["segmented"] and len(st["tile_widths"]) >= 3,
+        "f64 edep vs plain <= 1e-12": d64 <= 1e-12,
+        f"f32 edep vs plain <= 2 x phase 7's drift ({2 * drift:.2e})":
+            d32 <= 2 * drift,
+        "trace_stats counts identical": all(
+            st[k] == plain.stats[k] and seg64.stats[k] == plain64.stats[k]
+            for k in keys),
+        "energy conserved (1e-5)": cons < 1e-5,
+        "K1 launches == steps > 0": n15["K1"] == st["steps_executed"] > 0,
+        "nothing written to the cache dir": had_cache or not os.path.exists(
+            cache),
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"compacted OMEGA trace failed: "
+                           f"{[k for k, v in checks.items() if not v]}; "
+                           f"rel-L2 f32 {d32} f64 {d64}; stats {st}")
+    lines = [f"runner.run(cache_dir=...): tile widths {st['tile_widths']}; "
+             f"vs the uncompacted run: f32 rel-L2 {d32:.3e} (bar "
+             f"{2 * drift:.3e}), f64 {d64:.3e}; counts {[st[k] for k in keys]}"
+             f" identical; absorbed-vs-deposited {cons:.3e}; steps "
+             f"{st['steps_executed']}, K1 launches {n15['K1']}; phases "
+             + " ".join(f"{k} {v:.6f} s" for k, v in seg.timings.items())]
+    ctx = rt.prepare_device(cfg, device=dev)
+    fns = {"plain": rt.make_trace_fn(cfg),
+           "compacted": rt.make_trace_fn(cfg, compact=True)}
+    times = {k: [] for k in fns}
+    for which in ("plain", "compacted", "compacted", "plain", "plain",
+                  "compacted"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fns[which](ctx.field4, ctx.state0)
+        torch.cuda.synchronize()
+        times[which].append(time.perf_counter() - t)
+    lines.append("traces, median of 3 in turns: " + "; ".join(
+        f"{k} {statistics.median(v):.6f} s of {[round(x, 6) for x in v]}"
+        for k, v in times.items()) + f"; card {smi}")
+    return lines, n15["K1"]
+
+
+def compacted_cbet(cfg, dev, ref, drift, zero_counts, read_counts, smi):
+    """Phase 16: the JAX bench's CBET configuration (kernel_cell,
+    ``cbet_segmented=True``, ``cbet_plan_headroom=0.5``) and the lookup,
+    f32, through ``runner.run(with_cbet=True, cache_dir=...)``, against the
+    uncompacted solves of phases 9 and 10; kernel_cell in f64; then seeded
+    solves compacted and uncompacted in turns.  Returns (lines, launches of
+    the kernel_cell run)."""
+    import torch
+    from cbet_raytracing_3d_tpu_torch.models import cbet
+    from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
+    from cbet_raytracing_3d_tpu_torch.runner import run
+
+    cache = os.path.join(REPO, ".cbet_cache")
+    batch = cfg.deposit_batch_steps
+    bar = max(1e-6, 2 * drift)
+    lines, checks, launches = [], {}, None
+    for mode in ("kernel_cell", "lookup"):
+        c = cfg.replace(cbet_gain_mode=mode, cbet_plan_headroom=0.5)
+        zero_counts()
+        r = run(c, with_cbet=True, device=dev, verbose=False,
+                cache_dir=cache)
+        n = read_counts()
+        res, want = r.cbet, ref[mode]
+        windows = sum(res.stats["trace_steps"]) // batch
+        hrel = max(abs(a / b - 1) for a, b in zip(res.history, want.history))
+        de, di = rel_l2(res.edep, want.edep), rel_l2(res.intensity,
+                                                     want.intensity)
+        kernel_ok = (n["K4"] == windows if mode == "kernel_cell" else
+                     n["K1"] == windows + r.stats["steps_executed"])
+        checks.update({
+            f"{mode}: 5 iterations, segmented": res.iterations == 5
+            and res.converged and res.stats["segmented"]
+            and res.stats["plan_headroom"] == 0.5,
+            f"{mode}: history within 1e-3": hrel < 1e-3,
+            f"{mode}: edep, intensity within {bar:.1e}": de < bar
+            and di < bar,
+            f"{mode}: K2 == windows > 0, K3 == iterations": n["K2"] == windows
+            > 0 and n["K3"] == res.iterations,
+            f"{mode}: K4 (kernel_cell) or K1 (lookup) per window": kernel_ok,
+        })
+        if mode == "kernel_cell":
+            launches = n
+        lines.append(
+            f"{mode}, cbet_segmented, headroom 0.5: {res.iterations} "
+            f"iterations, history {[f'{h:.5f}' for h in res.history]} "
+            f"(max rel {hrel:.2e} from the uncompacted solve); edep "
+            f"{de:.3e} intensity {di:.3e} (bar {bar:.1e}: 2 x phase 13's "
+            f"full-vs-full drift); last trace's tile widths "
+            f"{res.stats['tile_widths']}; launches {n} over {windows} windows"
+            f"; CBET phase {r.timings['CBET']:.6f} s")
+    c64 = cfg.replace(dtype="float64", cbet_gain_mode="kernel_cell",
+                      cbet_plan_headroom=0.5)
+    r64 = run(c64, with_cbet=True, device=dev, verbose=False,
+              cache_dir=cache).cbet
+    d64 = max(rel_l2(r64.edep, ref["kernel_cell_f64"].edep),
+              rel_l2(r64.intensity, ref["kernel_cell_f64"].intensity))
+    checks["f64 kernel_cell vs uncompacted <= 1e-10"] = d64 <= 1e-10
+    lines.append(f"f64 kernel_cell compacted vs uncompacted: edep/intensity "
+                 f"max rel-L2 {d64:.3e} (bar 1e-10), {r64.iterations} "
+                 "iterations")
+    ctx = rt.prepare_device(cfg, device=dev)
+    c_kc = cfg.replace(cbet_gain_mode="kernel_cell", cbet_plan_headroom=0.5)
+    variants = {"uncompacted": c_kc,
+                "compacted": c_kc.replace(cbet_segmented=True)}
+    for c in variants.values():
+        cbet.cbet_solve(c.replace(cbet_max_iters=1), ctx, dev)
+    solves = {k: [] for k in variants}
+    for which in ("uncompacted", "compacted", "compacted", "uncompacted",
+                  "uncompacted", "compacted"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = cbet.cbet_solve(variants[which], ctx, dev)
+        torch.cuda.synchronize()
+        solves[which].append((time.perf_counter() - t, r))
+    checks["timed solves: 5 iterations"] = all(
+        x[1].iterations == 5 for v in solves.values() for x in v)
+    for which, runs in solves.items():
+        secs = [x[0] for x in runs]
+        st = runs[int(np.argsort(secs)[1])][1].stats
+        lines.append(
+            f"{which} kernel_cell solve, seeded, median "
+            f"{statistics.median(secs):.6f} s of "
+            f"{[round(x, 6) for x in secs]}; median solve's trace "
+            f"{[round(x, 6) for x in st['iter_trace_seconds']]} s; card {smi}")
+    if not all(checks.values()):
+        raise RuntimeError("compacted CBET failed: "
+                           f"{[k for k, v in checks.items() if not v]}; "
+                           + " | ".join(lines))
+    return lines, launches
+
+
+def mma_probe_phase(dev, zero_counts, read_counts, smi):
+    """Phase 17: K6 against its plain version at the six shapes, timed
+    beside ``torch.matmul`` in bf16; then the probe's entry point in this
+    process (its launches) and once as a subprocess.  Returns (lines, the
+    JSON fields of the first shape, launches)."""
+    import torch
+    from cbet_raytracing_3d_tpu_torch.ops import mma_probe as mp
+    from cbet_raytracing_3d_tpu_torch.scripts import bench_mma_shapes as bm
+
+    lines, kern = [], None
+    products = mp.REPS * mp.GRID
+    for label, m, k, n, tr in mp.SHAPES:
+        a, b = bm.operands(m, k, n, tr, dev)
+        got = mp.mma_probe(a, b, mp.REPS, tr, mp.GRID)
+        want = mp.mma_probe_reference(a, b, mp.REPS, tr, mp.GRID)
+        torch.cuda.synchronize()
+        err = rel_l2(got.double().cpu(), want.double().cpu())
+        mx = float((got.double() - want.double()).abs().max())
+        if not (err <= 1e-5 and bool(torch.isfinite(got).all())):
+            raise RuntimeError(f"K6 vs plain failed at {label}: rel-L2 {err}")
+        ms = cuda_ms(lambda: mp.mma_probe(a, b, mp.REPS, tr, mp.GRID), 5)
+        ms_p = cuda_ms(lambda: mp.mma_probe_reference(a, b, mp.REPS, tr), 5)
+        a_op = a.t() if tr else a
+        # the library's time for the launch's products: bf16 products, each
+        # one torch.matmul call, queued so that they run back to back (a
+        # product is shorter than its launch); unqueued for comparison
+        lib = cuda_ms(lambda: torch.matmul(a_op, b), 200, queued=True
+                      ) * products
+        lib_host = cuda_ms(lambda: torch.matmul(a_op, b), 200) * products
+        nbytes = 2 * (m * k + k * n) + 4 * m * n
+        ops = mp.flops(m, k, n, mp.REPS, mp.GRID)
+        kb = bound(nbytes, ops, mp.PEAK_BF16)
+        rate = ops / (ms / 1e3)
+        lines.append(
+            f"{label}: rel-L2 {err:.3e} (<= 1e-5); {ms:.4f} ms per launch of "
+            f"{products} products = {1e3 * ms / products:.4f} us per product, "
+            f"{rate / 1e12:.1f} TFLOP/s = {100 * rate / mp.PEAK_BF16:.1f} % "
+            f"of 989; plain {ms_p:.4f} ms (one product, summed); "
+            f"torch.matmul {1e3 * lib / products:.4f} us per product queued "
+            f"({1e3 * lib_host / products:.4f} us as launched) = {lib:.4f} ms "
+            f"for the launch's products; bound {kb['bound_ms']:.4f}"
+            f" ms ({kb['bound_by']}); card {smi}")
+        if kern is None:
+            kern = {"max_abs_err": mx, "ms": ms, "plain_ms": ms_p, **kb,
+                    "library_ms": lib}
+    zero_counts()
+    if bm.main() != 0:
+        raise RuntimeError("bench_mma_shapes failed in process")
+    n17 = read_counts()["K6"]
+    if n17 != 4 * len(mp.SHAPES):
+        raise RuntimeError(f"bench_mma_shapes launched K6 {n17} times")
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.scripts.bench_mma_shapes"],
+        capture_output=True, text=True, timeout=300, cwd=REPO)
+    if proc.returncode != 0:
+        raise RuntimeError(f"bench_mma_shapes subprocess rc "
+                           f"{proc.returncode}: {proc.stderr[-2000:]}")
+    lines.append(f"bench_mma_shapes: {n17} K6 launches in process; as a "
+                 f"subprocess rc 0, {len(proc.stdout.splitlines())} lines")
+    return lines, kern, n17
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 """The port on the card: the CUDA kernels (the deposit K1, the grouped
 deposit K2, the gain reduction K3, the window-gain deposit K4 in its "cell",
-"tri" and gain-only forms) against their plain PyTorch versions, traces on
-the card against the CPU trace and the config-1 golden, and CBET solves
-(with the opt-ins) through the kernels against solves through the plain
-versions.  Marked ``cuda``; each test skips without a CUDA device.
+"tri" and gain-only forms, the tensor-core probe K6) against their plain
+PyTorch versions, traces on the card against the CPU trace and the config-1
+golden, the on-card init against the host prepare, a compacted trace
+against the uncompacted one, and CBET solves (with the opt-ins) through the
+kernels against solves through the plain versions.  Marked ``cuda``; each
+test skips without a CUDA device.
 
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies (the repository's conftest imports jax, hence
@@ -276,6 +278,67 @@ def test_gain_window_tri_rejects_bad_arguments(cuda, cbet_ctx):
     with pytest.raises(ValueError):                  # the grid on the CPU
         fn(edep.cpu(), *args, gain_only=True)
     assert before == (gdep.TRI_LAUNCHES, gdep.GAIN_ONLY_LAUNCHES)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_device_init_on_card_equals_host_prepare(cuda, dtype):
+    """``prepare_device`` on the card computes in float64 with the host
+    prepare's operations, then casts: every launched ray's state is the
+    host's bit for bit; beam ids are -1 exactly on pad tiles."""
+    cfg = Config(nbeams=3, rays_per_zone=2, nx=40, ny=40, nz=40,
+                 tiles_per_block=2, dtype=dtype)
+    ctx_h = rt.prepare(cfg)
+    ctx_d = rt.prepare_device(cfg, device=cuda)
+    assert ctx_d.compact and ctx_d.state0.uray.is_cuda
+    ids, valid = rt.live_tile_ids(cfg, ctx_h.layout)
+    rpt = ctx_h.layout.rays_per_tile
+    state_h = rt.select_rays(ctx_h.state0, rt.tile_slots(ids[valid], rpt))
+    sel = np.nonzero(np.repeat(valid, rpt))[0]
+    state_d = rt.select_rays(ctx_d.state0, sel).to("cpu")
+    m = state_h.alive
+    assert torch.equal(state_d.alive, m) and int(m.sum()) > 0
+    for name in ("frac", "vel", "kick", "cell"):
+        for a, b in zip(getattr(state_d, name), getattr(state_h, name)):
+            assert torch.equal(a[m], b[m]), name
+    assert torch.equal(state_d.uray[m], state_h.uray[m])
+    assert np.array_equal(ctx_d.beam_id == -1, np.repeat(~valid, rpt))
+
+
+@pytest.mark.parametrize("shape", [0, 4])
+def test_mma_probe_kernel_matches_plain(cuda, shape):
+    """K6 against its plain version at two of the six shapes (the
+    transposed deposit shape and a lookup shape), with its launch count."""
+    from cbet_raytracing_3d_tpu_torch.ops import mma_probe as mp
+    from cbet_raytracing_3d_tpu_torch.scripts.bench_mma_shapes import operands
+    _, m, k, n, tr = mp.SHAPES[shape]
+    a, b = operands(m, k, n, tr, cuda)
+    before = mp.LAUNCHES
+    got = mp.mma_probe(a, b, mp.REPS, tr, 4)
+    assert mp.LAUNCHES == before + 1
+    want = mp.mma_probe_reference(a, b, mp.REPS, tr)
+    assert rel_l2(got.cpu(), want.cpu()) < 1e-5
+    with pytest.raises(TypeError):
+        mp.mma_probe(a.float(), b, transpose_lhs=tr)
+    with pytest.raises(ValueError):
+        mp.mma_probe(a[:, :-1].contiguous() if not tr else a[:-1].contiguous(),
+                     b[:-1].contiguous() if tr else b, transpose_lhs=tr)
+
+
+def test_compacted_trace_on_card_matches_plain(cuda):
+    """One compacted trace against the uncompacted one on the card at
+    config-1 scale (float64; the atomics add in another order)."""
+    cfg = Config(nbeams=1, rays_per_zone=1, nx=40, ny=40, nz=40,
+                 dtype="float64")
+    ctx = rt.prepare_device(cfg, device=cuda)
+    state0 = rt.traced_state(ctx, cuda)
+    e_p, s_p, _, n_p = rt.make_trace_fn(cfg)(ctx.field4, state0)
+    widths = []
+    e_c, s_c, _, n_c = rt.make_trace_fn(cfg, compact=True)(
+        ctx.field4, state0, widths)
+    assert n_p == n_c > 0 and len(widths) >= 2
+    assert rel_l2(e_c.cpu(), e_p.cpu()) < 1e-12
+    assert torch.equal(s_c.alive, s_p.alive)
+    assert rel_l2(s_c.uray.cpu(), s_p.uray.cpu()) < 1e-12
 
 
 @pytest.mark.parametrize("over", [

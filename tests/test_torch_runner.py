@@ -105,9 +105,31 @@ def test_cli_run_and_dump(tmp_path, capsys, port_run):
     assert capsys.readouterr().out == joutput.dump_print_format(port_run.edep)
 
 
+def test_cli_run_cache_dir_takes_the_compacted_path(tmp_path, port_run):
+    """As the JAX CLI: ``cli run`` passes ``--cache-dir .cbet_cache`` by
+    default and then compacts the trace mid-trace (``stats["segmented"]``);
+    ``--cache-dir ''`` does not; the grids are equal bit for bit and the
+    port writes no cache."""
+    grids = {}
+    for tag, extra in (("default", []), ("off", ["--cache-dir", ""])):
+        out = tmp_path / tag
+        rc = cli.main(["run", *SMALL_FLAGS, "--device", "cpu", "--out-dir",
+                       str(out), "--formats", "npz,json", "--quiet",
+                       *extra])
+        assert rc == 0
+        stats = json.load(open(out / "edep.json"))["stats"]
+        assert stats["segmented"] == (tag == "default")
+        assert bool(stats["tile_widths"]) == (tag == "default")
+        with np.load(out / "edep.npz") as z:
+            grids[tag] = z["edep"]
+    assert np.array_equal(grids["default"], grids["off"])
+    assert np.array_equal(grids["off"], port_run.edep)
+    assert not os.path.exists(".cbet_cache/") or not os.listdir(".cbet_cache")
+
+
 @pytest.mark.parametrize("argv", [
     ["run", "--cbet-only"], ["run", "--composed"], ["run", "--checkpoint", "c"],
-    ["run", "--resume"], ["run", "--cache-dir", "c"],
+    ["run", "--resume"], ["run", "--min-tiles", "4"],
     ["run", "--profile-dir", "p"], ["track", "--pairs", "0:1"],
     ["run", "--deposit-backend", "pallas"], ["run", "--parity", "Reference"],
 ])
