@@ -10,7 +10,8 @@ Counterpart of the ``run`` and ``dump`` subcommands of
 * ``dump`` — reference-compatible -D PRINT text dump to stdout
               (Makefile:14-17 golden-test replacement)
 
-Both run on the card when there is one (``--device`` overrides).
+Both run on the card; without one they stop unless ``--device cpu`` is
+given (``--device`` overrides).
 
 Usage examples::
 
@@ -33,7 +34,7 @@ import sys
 import typing
 
 from .config import Config
-from .runner import run, write_outputs
+from .runner import default_device, run, write_outputs
 from .utils.output import dump_print_format
 
 
@@ -79,8 +80,8 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
             p.add_argument(name, type=str, default=f.default,
                            choices=choices)
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, "
-                        "else cpu)")
+                   help="torch device (default: cuda; without a card the "
+                        "run stops unless --device cpu is given)")
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
@@ -111,6 +112,11 @@ def main(argv=None) -> int:
 
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
+    if args.device is None:
+        try:
+            args.device = default_device()
+        except RuntimeError as e:
+            parser.error(str(e))
 
     if args.cmd == "run":
         res = run(cfg, with_cbet=args.cbet, device=args.device,

@@ -8,11 +8,11 @@
 // nz+2 > 128).  K2 replaces make_tile_deposit's grouped form (n_groups,
 // tiles_per_group: each run of tiles_per_group tiles deposits into its own
 // grid).  The TPU has no atomics, so those kernels bin each tile's rows into
-// a box with one-hot matrix products on the MXU; Hopper has fast atomics in
-// L2, so these kernels do what the reference does (launch_ray_XZ.cu:
-// 319-348): one thread per row, eight atomicAdds (deposit_row.cuh has the
-// contract).  There is no tile box, so the grid size is not limited and the
-// high-resolution case needs no separate kernel.
+// a box with one-hot matrix products on the MXU.  K1 does what the
+// reference does (launch_ray_XZ.cu:319-348): one thread per row, eight
+// atomicAdds into L2 (deposit_row.cuh has the contract); there is no box, so
+// the grid size is not limited and the high-resolution case needs no
+// separate kernel.
 //
 // K2's rows are one step (n_rays,) or one window (batch * n_rays,) in
 // step-major order: row i belongs to ray i % n_rays and to group
@@ -20,13 +20,20 @@
 // elements in (int64).  The wrapper refuses n_rays > groups *
 // rays_per_group, so no group index leaves the grids.
 //
-// What bounds them on the card: atomic throughput in L2 and the L2 traffic
-// of the grid (8 atomics per row).  K1's grid (4 MB f32 at 100^3) stays
-// resident in the 50 MB L2; K2's 60 beam grids (255 MB) do not, but the rows
-// of one group sit together in the flat axis (beam-contiguous, launch-tile
-// order), so at any time the card works on a few beams' grids.  Rows with
-// inc == 0 (dead rays) return before any memory traffic beyond their own
-// inc.
+// What bounds them on the card: the global atomics (8 per live row) and,
+// for K2, the HBM traffic they cause.  K1's grid (4 MB f32 at 100^3) stays
+// resident in the 50 MB L2; K2's 60 beam grids (255 MB) do not, and a
+// one-thread-per-row K2 over a step-major window fetches each beam's region
+// of its grid again for every step.  So K2 runs ray-major over the window
+// (thread r walks rows j * n_rays + r, j < batch; the loads stay coalesced
+// for each j) with one block per 256 rays, which is one launch tile of one
+// beam at OMEGA in every layout, and deposits through the shared-memory tile
+// box of deposit_row.cuh: one global atomic per touched node of the block's
+// box instead of eight per row.  A block whose rays fall into two groups
+// (rays_per_group not a multiple of 256) or whose box exceeds the capacity
+// takes the direct path, per-row global atomics.  The direct kernel (one
+// thread per row) runs when the capacity is 0.
+// Rows with inc == 0 (dead rays) cost their own inc and nothing else.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a into the package's
 // shared library with a plain C interface; bound with ctypes
@@ -40,6 +47,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+static_assert(kThreads == cbet::kBoxThreads, "one block per box");
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -77,6 +85,58 @@ deposit_grouped_kernel(T* __restrict__ grids, const int32_t* __restrict__ cx,
                     nyp, nzp, overflow);
 }
 
+// K2 through the tile box: one thread per ray over its window of `batch`
+// step-major rows, one block per kBoxThreads consecutive rays.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+deposit_grouped_box_kernel(T* __restrict__ grids,
+                           const int32_t* __restrict__ cx,
+                           const int32_t* __restrict__ cy,
+                           const int32_t* __restrict__ cz,
+                           const T* __restrict__ fx, const T* __restrict__ fy,
+                           const T* __restrict__ fz, const T* __restrict__ inc,
+                           long long n_rays, long long rays_per_group,
+                           int batch, int nxp, int nyp, int nzp,
+                           int box_nodes, int* __restrict__ overflow,
+                           int* __restrict__ tally) {
+  extern __shared__ __align__(16) unsigned char box_smem[];
+  cbet::BoxNode* box = reinterpret_cast<cbet::BoxNode*>(box_smem);
+  const long long r0 = (long long)blockIdx.x * kThreads;
+  const long long r = r0 + threadIdx.x;
+  // no early return: every thread reaches the box's barriers
+  const bool has = r < n_rays;
+  cbet::Box<T> mine = cbet::empty_box<T>();
+  for (int j = 0; has && j < batch; ++j) {
+    const long long i = (long long)j * n_rays + r;
+    const T u = inc[i];
+    if (u == T(0)) continue;
+    const cbet::Corners<T> c = cbet::row_corners(
+        cx[i], cy[i], cz[i], fx[i], fy[i], fz[i], nxp, nyp, nzp);
+    if (c.ok) cbet::box_add(mine, c, u);
+  }
+  const long long last = (r0 + kThreads < n_rays ? r0 + kThreads : n_rays) - 1;
+  const bool one_group = r0 / rays_per_group == last / rays_per_group;
+  const cbet::BoxPlan plan =
+      cbet::plan_box(mine, batch, one_group, box_nodes, box, tally);
+  T* grid = grids + ((has ? r : r0) / rays_per_group) *
+                        ((long long)nxp * nyp * nzp);
+  for (int j = 0; has && j < batch; ++j) {
+    const long long i = (long long)j * n_rays + r;
+    const T u = inc[i];
+    if (u == T(0)) continue;
+    const cbet::Corners<T> c = cbet::row_corners(
+        cx[i], cy[i], cz[i], fx[i], fy[i], fz[i], nxp, nyp, nzp);
+    if (!c.ok) {
+      atomicAdd(overflow, 1);
+    } else if (plan.use) {
+      cbet::box_deposit(plan, box, c, u);
+    } else {
+      cbet::deposit_corners(grid, c, u, nyp, nzp);
+    }
+  }
+  cbet::box_flush(plan, box, grid, nyp, nzp);
+}
+
 template <typename T>
 int launch(void* edep, const void* cx, const void* cy, const void* cz,
            const void* fx, const void* fy, const void* fz, const void* inc,
@@ -97,15 +157,33 @@ int launch_grouped(void* grids, const void* cx, const void* cy,
                    const void* cz, const void* fx, const void* fy,
                    const void* fz, const void* inc, long long n,
                    long long n_rays, long long rays_per_group, int nxp,
-                   int nyp, int nzp, void* overflow, void* stream) {
+                   int nyp, int nzp, int box_nodes, void* overflow,
+                   void* tally, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (n_rays <= 0 || rays_per_group <= 0) return (int)cudaErrorInvalidValue;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  deposit_grouped_kernel<T><<<(unsigned int)blocks, kThreads, 0,
-                              (cudaStream_t)stream>>>(
-      (T*)grids, (const int32_t*)cx, (const int32_t*)cy, (const int32_t*)cz,
-      (const T*)fx, (const T*)fy, (const T*)fz, (const T*)inc, n, n_rays,
-      rays_per_group, nxp, nyp, nzp, (int*)overflow);
+  if (n_rays <= 0 || rays_per_group <= 0 || n % n_rays != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int nodes = cbet::box_capacity(box_nodes);
+  if (nodes < 0) return (int)cudaErrorInvalidValue;
+  const long long batch = n / n_rays;
+  if (nodes == 0) {
+    const long long blocks = (n + kThreads - 1) / kThreads;
+    deposit_grouped_kernel<T><<<(unsigned int)blocks, kThreads, 0,
+                                (cudaStream_t)stream>>>(
+        (T*)grids, (const int32_t*)cx, (const int32_t*)cy,
+        (const int32_t*)cz, (const T*)fx, (const T*)fy, (const T*)fz,
+        (const T*)inc, n, n_rays, rays_per_group, nxp, nyp, nzp,
+        (int*)overflow);
+    return (int)cudaGetLastError();
+  }
+  const long long blocks = (n_rays + kThreads - 1) / kThreads;
+  deposit_grouped_box_kernel<T>
+      <<<(unsigned int)blocks, kThreads, (size_t)nodes * sizeof(cbet::BoxNode),
+         (cudaStream_t)stream>>>(
+          (T*)grids, (const int32_t*)cx, (const int32_t*)cy,
+          (const int32_t*)cz, (const T*)fx, (const T*)fy, (const T*)fz,
+          (const T*)inc, n_rays, rays_per_group, (int)batch, nxp, nyp, nzp,
+          nodes, (int*)overflow, (int*)tally);
   return (int)cudaGetLastError();
 }
 
@@ -131,27 +209,35 @@ int cbet_deposit_f64(void* edep, const void* cx, const void* cy,
                         overflow, stream);
 }
 
+// K2's `box_nodes` is the tile box's capacity in nodes: < 0 the kernel's
+// default (cbet_box_default_nodes), 0 the direct kernel (one thread per
+// row); more than 48 KB of nodes is refused, and so is an `n` that is not a
+// whole number of steps of `n_rays`.  `tally` (null, or two ints: blocks with
+// rows, blocks that took the box) counts the box's use.
 int cbet_deposit_grouped_f32(void* grids, const void* cx, const void* cy,
                              const void* cz, const void* fx, const void* fy,
                              const void* fz, const void* inc, long long n,
                              long long n_rays, long long rays_per_group,
-                             int nxp, int nyp, int nzp, void* overflow,
-                             void* stream) {
+                             int nxp, int nyp, int nzp, int box_nodes,
+                             void* overflow, void* tally, void* stream) {
   return launch_grouped<float>(grids, cx, cy, cz, fx, fy, fz, inc, n, n_rays,
-                               rays_per_group, nxp, nyp, nzp, overflow,
-                               stream);
+                               rays_per_group, nxp, nyp, nzp, box_nodes,
+                               overflow, tally, stream);
 }
 
 int cbet_deposit_grouped_f64(void* grids, const void* cx, const void* cy,
                              const void* cz, const void* fx, const void* fy,
                              const void* fz, const void* inc, long long n,
                              long long n_rays, long long rays_per_group,
-                             int nxp, int nyp, int nzp, void* overflow,
-                             void* stream) {
+                             int nxp, int nyp, int nzp, int box_nodes,
+                             void* overflow, void* tally, void* stream) {
   return launch_grouped<double>(grids, cx, cy, cz, fx, fy, fz, inc, n,
                                 n_rays, rays_per_group, nxp, nyp, nzp,
-                                overflow, stream);
+                                box_nodes, overflow, tally, stream);
 }
+
+// The tile box's default capacity in nodes (K2 and K4 "cell"/"tri").
+int cbet_box_default_nodes(void) { return cbet::kBoxNodes; }
 
 const char* cbet_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -674,8 +674,9 @@ def _sync(device) -> None:
 def cbet_solve(cfg: Config, ctx: rt.TraceContext, device=None,
                verbose: bool = False, ops: CbetOps | None = None
                ) -> CbetResult:
-    """Fixed-point CBET solve on ``device`` (default: the card when there
-    is one, else the CPU); ``models/cbet.py:1534``/``:1559``, single
+    """Fixed-point CBET solve on ``device`` (default: the card,
+    ``raytracer.default_device``; ``"cpu"`` for a CPU run);
+    ``models/cbet.py:1534``/``:1559``, single
     device, its traces compacted with ``cfg.cbet_segmented``.  ``ops``
     overrides the kernel entry points (default: resolved from
     ``cfg.deposit_backend``).

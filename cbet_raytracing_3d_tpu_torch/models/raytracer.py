@@ -397,12 +397,13 @@ def prepare_device(cfg: Config, prof: RadialProfiles | None = None,
                    beam_norm: np.ndarray | None = None,
                    device=None) -> TraceContext:
     """On-card Init (``models/raytracer.py:566``): like :func:`prepare`,
-    but the per-ray state is built on ``device`` (default: the card when
-    there is one) by :func:`make_device_init`, in float64, and cast once to
-    the config's dtype.  ``state0`` is already the live-tile, per-beam
-    block-padded traced state of :func:`live_tile_ids`, ``live_slots`` spans
-    all of it, ``beam_id`` is -1 on pad slots and ``compact`` is True.  Host
-    work is O(grid + nrays), not O(nbeams * nrays)."""
+    but the per-ray state is built on ``device`` (default: the card,
+    :func:`default_device`) by :func:`make_device_init`, in float64, and
+    cast once to the config's dtype.  ``state0`` is already the live-tile,
+    per-beam block-padded traced state of :func:`live_tile_ids`,
+    ``live_slots`` spans all of it, ``beam_id`` is -1 on pad slots and
+    ``compact`` is True.  Host work is O(grid + nrays), not
+    O(nbeams * nrays)."""
     device = torch.device(device) if device is not None else default_device()
     if prof is None:
         prof = load_profiles(nr=cfg.nr)
@@ -522,8 +523,13 @@ def make_deferred_step_fn(cfg: Config):
 
 
 def default_device() -> torch.device:
-    """The card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card.  Raises when there is none: the entry points never pick
+    the CPU on their own, a CPU run is asked for with ``device="cpu"``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device (torch.cuda.is_available() is False): pass "
+            "device=\"cpu\" (on the command line --device cpu) for a CPU run")
+    return torch.device("cuda")
 
 
 def resolve_deposit_fn(cfg: Config, device) -> Callable:
@@ -619,9 +625,10 @@ def traced_state(ctx: TraceContext, device) -> RayState:
 
 def trace(ctx: TraceContext, device=None, compact: bool = False):
     """Convenience full trace of the live tiles on ``device`` (default: the
-    CPU), compacted mid-trace with ``compact``.  Returns (edep [np.f64
-    padded], final RayState over the traced slots)."""
-    device = torch.device(device or "cpu")
+    card, :func:`default_device`; ``"cpu"`` for a CPU run), compacted
+    mid-trace with ``compact``.  Returns (edep [np.f64 padded], final
+    RayState over the traced slots)."""
+    device = torch.device(device) if device is not None else default_device()
     edep, state, oflow, _ = make_trace_fn(ctx.cfg, compact=compact)(
         ctx.field4.to(device), traced_state(ctx, device))
     check_overflow(int(oflow), ctx.cfg)

@@ -22,6 +22,12 @@ the grouped form, the per-beam CBET intensity fields: ``grids`` is
 ``(i % n_rays) // rays_per_group`` (rows are one step of ``n_rays`` rays, or
 a step-major window of several).
 
+K2 deposits a step-major window ray-major, each block of 256 rays through a
+shared-memory tile box (``csrc/deposit_row.cuh``); ``BOX_DEFAULT`` asks for
+the kernel's own box capacity, 0 for the direct kernel (one thread per row).
+The wrappers always take the default; ``_launch_grouped`` also takes 0, to
+time the two designs side by side, and a ``tally`` of the box's use.
+
 Each wrapper launches its kernel for CUDA tensors (after checking device,
 dtype, shape and contiguity; it raises on anything else) and takes the plain
 version only for CPU tensors.  ``LAUNCHES`` and ``GROUPED_LAUNCHES`` count
@@ -37,6 +43,9 @@ import torch
 LAUNCHES = 0
 #: number of K2 grouped-deposit launches, counted the same way
 GROUPED_LAUNCHES = 0
+#: the tile box capacity that asks for the kernel's default
+#: (``cbet_box_default_nodes``); 0 runs the direct kernel
+BOX_DEFAULT = -1
 
 
 def _corner_parts(cx, cy, cz, fx, fy, fz, inc, shape):
@@ -203,6 +212,19 @@ def deposit_grouped(grids, cx, cy, cz, fx, fy, fz, inc, rays_per_group,
     if _on_cpu(grids, ints + flts, "grouped deposit"):
         return deposit_grouped_reference(grids, cx, cy, cz, fx, fy, fz, inc,
                                          rays_per_group, n_rays)
+    overflow = _launch_grouped(grids, cx, cy, cz, fx, fy, fz, inc,
+                               rays_per_group, n_rays)
+    GROUPED_LAUNCHES += 1
+    return grids, overflow
+
+
+def _launch_grouped(grids, cx, cy, cz, fx, fy, fz, inc, rays_per_group,
+                    n_rays=None, box_nodes=BOX_DEFAULT, tally=None):
+    """Check the CUDA arguments and launch K2 with tile box capacity
+    ``box_nodes``; returns the overflow count.  ``tally``, an int32 (2,)
+    tensor on the grids' device, receives the blocks with rows and the
+    blocks that took the box."""
+    ints, flts = (cx, cy, cz), (fx, fy, fz, inc)
     _check_cuda_args(grids, ints, flts, grid_dim=4)
     n_rays = _check_groups(cx.shape[0], n_rays, rays_per_group,
                            grids.shape[0])
@@ -216,7 +238,15 @@ def deposit_grouped(grids, cx, cy, cz, fx, fy, fz, inc, rays_per_group,
         rc = fn(grids.data_ptr(), cx.data_ptr(), cy.data_ptr(), cz.data_ptr(),
                 fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), inc.data_ptr(),
                 cx.shape[0], n_rays, rays_per_group, *grids.shape[1:],
-                overflow.data_ptr(), stream)
+                box_nodes, overflow.data_ptr(),
+                None if tally is None else _tally_ptr(tally, grids.device),
+                stream)
     _raise_on(rc, lib, "grouped deposit")
-    GROUPED_LAUNCHES += 1
-    return grids, overflow
+    return overflow
+
+
+def _tally_ptr(tally, device):
+    if (tally.dtype != torch.int32 or tally.shape != (2,)
+            or tally.device != device):
+        raise ValueError(f"tally must be an int32 (2,) tensor on {device}")
+    return tally.data_ptr()

@@ -32,6 +32,10 @@ uinit, gain, rays_per_group, clip, stop_fraction, gain_only=False)``
   or without ``gain_only``) and, in "cell" mode, whose entry cell does (0 on
   the trace's clamped cells).
 
+With the edep deposit, the kernel deposits each block of 256 rays' window
+through a shared-memory tile box (``csrc/deposit_row.cuh``); the wrappers
+take the kernel's default capacity, ``_launch`` also 0 (the direct kernel).
+
 The wrappers launch the kernel for CUDA tensors (after checking device,
 dtype, shape and contiguity; they raise on anything else) and take the
 plain versions only for CPU tensors.  ``LAUNCHES``, ``TRI_LAUNCHES`` and
@@ -42,7 +46,8 @@ from __future__ import annotations
 
 import torch
 
-from .deposit import _corner_parts, _on_cpu, _raise_on, deposit_reference
+from .deposit import (BOX_DEFAULT, _corner_parts, _on_cpu, _raise_on,
+                      _tally_ptr, deposit_reference)
 
 #: number of "cell" window-gain kernel launches with the edep deposit in
 #: this process (the plain versions and the CPU path do not count)
@@ -164,9 +169,12 @@ def deposit_gain_window_tri_reference(edep, cx, cy, cz, fx, fy, fz, inc, ds,
 
 
 def _launch(edep, streams, uinit, lags, gain, rays_per_group, clip,
-            stop_fraction, gain_only):
+            stop_fraction, gain_only, box_nodes=BOX_DEFAULT, tally=None):
     """Check the CUDA arguments and launch the kernel; "tri" when there are
-    no lag cells.  Returns ``(edep, overflow, gamma, uout)``."""
+    no lag cells.  ``box_nodes`` is the edep tile box's capacity (the
+    wrappers take the kernel's default; 0 runs the direct kernel) and
+    ``tally`` as in ``ops.deposit._launch_grouped``.  Returns ``(edep,
+    overflow, gamma, uout)``."""
     batch, n, (nx, ny, nz) = _check(edep, streams, lags, uinit, gain,
                                     rays_per_group)
     if edep.dtype not in (torch.float32, torch.float64):
@@ -189,7 +197,9 @@ def _launch(edep, streams, uinit, lags, gain, rays_per_group, clip,
                 uinit.data_ptr(), *lag_ptrs, gain.data_ptr(), n,
                 rays_per_group, batch, nx, ny, nz, float(clip),
                 float(stop_fraction), int(not lags), int(bool(gain_only)),
-                overflow.data_ptr(), gamma.data_ptr(), uout.data_ptr(),
+                box_nodes, overflow.data_ptr(), gamma.data_ptr(),
+                uout.data_ptr(),
+                None if tally is None else _tally_ptr(tally, edep.device),
                 stream)
     _raise_on(rc, lib, "window-gain deposit")
     return edep, overflow, gamma, uout

@@ -108,7 +108,8 @@ def check_memory(cfg: Config, device, with_cbet: bool = False) -> None:
 def run(cfg: Config, *, with_cbet: bool = False, device=None,
         verbose: bool = True, cache_dir: str | None = None) -> RunResult:
     """Full simulation run with reference-parity phase accounting, on
-    ``device`` (default: the card when there is one, else the CPU).
+    ``device`` (default: the card, ``models.raytracer.default_device``,
+    which raises without one; ``"cpu"`` for a CPU run).
     ``with_cbet`` adds the "CBET" phase: the fixed-point solve over the same
     scene (``RunResult.cbet``).
 

@@ -7,8 +7,8 @@ For each trace: one warm-up, the median of 3 synchronized wall times (the
 traces run in turns, forward then backward, so that drift on the shared host
 falls on all of them), then one run under ``torch.profiler``: the device's
 busy time (the sum of the kernels' device time), its idle share against the
-unprofiled median, the kernels that took most of it, and the host's aten
-operator count.  The rays are initialized on the card
+unprofiled median, the kernels that took most of it and the package's own
+kernels (``csrc/``), and the host's aten operator count.  The rays are initialized on the card
 (``prepare_device``); the CBET trace is the kernel_cell solver's trace at
 zero gain.  Exits non-zero without a CUDA device.
 """
@@ -65,8 +65,12 @@ def profile(fn, walls: list, top: int = 6) -> dict:
     # the host's work: the aten operators it ran (nested ones included)
     ops = sum(e.count for e in prof.key_averages()
               if e.key.startswith("aten::"))
+    # the package's own kernels (csrc/), whatever their rank
+    hand = [r for r in rows if r[0].startswith("void (anonymous namespace)")
+            and "at::native" not in r[0]]
     return {"wall": wall, "walls": walls, "busy": busy,
-            "idle": 1.0 - busy / wall, "top": rows[:top], "host_ops": ops}
+            "idle": 1.0 - busy / wall, "top": rows[:top], "hand": hand,
+            "host_ops": ops}
 
 
 def main() -> int:
@@ -96,9 +100,12 @@ def main() -> int:
               f"{[round(x, 6) for x in r['walls']]}; device busy "
               f"{r['busy']:.6f} s, idle {100 * r['idle']:.1f} %; host aten ops "
               f"{r['host_ops']}", flush=True)
-        for key, us, count in r["top"]:
-            print(f"    {us / 1e3:10.3f} ms {100 * us / 1e6 / r['busy']:5.1f} %"
-                  f"  x{count:<6d} {key[:90]}", flush=True)
+        for tag, rows in (("top", r["top"]), ("hand kernels", r["hand"])):
+            print(f"  {tag}:", flush=True)
+            for key, us, count in rows:
+                print(f"    {us / 1e3:10.3f} ms "
+                      f"{100 * us / 1e6 / r['busy']:5.1f} %  x{count:<6d} "
+                      f"{key[:90]}", flush=True)
     return 0
 
 

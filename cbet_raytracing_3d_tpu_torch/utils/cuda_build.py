@@ -129,13 +129,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         #  stream)
         "cbet_deposit": [p] * 8 + [ll, i, i, i, p, p],
         # (grids, cx, cy, cz, fx, fy, fz, inc, n, n_rays, rays_per_group,
-        #  nxp, nyp, nzp, overflow, stream)
-        "cbet_deposit_grouped": [p] * 8 + [ll, ll, ll, i, i, i, p, p],
+        #  nxp, nyp, nzp, box_nodes, overflow, tally, stream)
+        "cbet_deposit_grouped": [p] * 8 + [ll, ll, ll, i, i, i, i, p, p, p],
         # (edep, cx, cy, cz, fx, fy, fz, inc, ds, u_nogain, uinit, lcx, lcy,
         #  lcz, gain, n_rays, rays_per_group, batch, nx, ny, nz, clip, stop,
-        #  tri, gain_only, overflow, gamma, uout, stream)
-        "cbet_gain_window": ([p] * 15 + [ll, ll, i, i, i, i, d, d, i, i]
-                             + [p] * 4),
+        #  tri, gain_only, box_nodes, overflow, gamma, uout, tally, stream)
+        "cbet_gain_window": ([p] * 15 + [ll, ll, i, i, i, i, d, d, i, i, i]
+                             + [p] * 5),
     }
     for stem, argtypes in signatures.items():
         for suffix in ("_f32", "_f64"):
@@ -148,5 +148,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     # (a, b, out, m, k, n, reps, transpose_lhs, grid, stream)
     lib.cbet_mma_probe_bf16.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.cbet_mma_probe_bf16.restype = ctypes.c_int
+    lib.cbet_box_default_nodes.argtypes = []
+    lib.cbet_box_default_nodes.restype = ctypes.c_int
     lib.cbet_error_string.argtypes = [ctypes.c_int]
     lib.cbet_error_string.restype = ctypes.c_char_p

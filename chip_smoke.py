@@ -26,11 +26,16 @@ Phases (one line each; any failure exits non-zero before the last line):
    plain version, in turns.
 7. determinism: rel-L2 between two kernel traces (float atomics reorder).
 8. CBET kernels vs plain, at the main path's shapes, timed with CUDA events:
-   the grouped intensity deposit (K2) into 60 beam grids, f32 and f64, and
-   its refusal of more rays than its groups hold; the gain reduction (K3) at
+   the grouped intensity deposit (K2) into 60 beam grids on one synthetic
+   step (boundary exits, dead rows, scattered tiles), f32 and f64, and its
+   refusal of more rays than its groups hold; the gain reduction (K3) at
    60 beams x 100^3 nodes and in its b_out form; the window-gain deposit
-   (K4) on an OMEGA window (5 steps, mid-trace, a smooth synthetic gain of
-   both signs, rays dying mid-window), f32 and f64.
+   (K4 "cell") on an OMEGA window (5 steps, mid-trace, a smooth synthetic
+   gain of both signs, rays dying mid-window) and K2 on that window's
+   5 x 1,228,800 rows (its contributions contrib0 * gamma), f32 and f64.
+   K2 and K4 are timed with their shared-memory tile box and on the direct
+   path (capacity 0) in turns, each line with the bound and the blocks that
+   took the box.
 9. OMEGA CBET, lookup mode: ``runner.run(Config(), with_cbet=True)`` on the
    card and the same in float64 (the exact reference); both converge in 5
    iterations; f32 against f64; both against ``artifacts/cbet_golden.npz``;
@@ -44,7 +49,8 @@ Phases (one line each; any failure exits non-zero before the last line):
    median solve seconds and per-iteration gain/trace/update seconds.
 12. K4 "tri" and K4 gain-only (both modes) against their plain versions on
    phase 8's OMEGA window, f32 and f64: edep, gamma, uout, overflow;
-   gain-only leaves edep bit-untouched; CUDA-event times.
+   gain-only leaves edep bit-untouched; CUDA-event times ("tri" with the
+   box and on the direct path, in turns).
 13. the OMEGA CBET opt-ins, f32, each after a 1-iteration warm-up (or on a
    warm cached solver): (a) ``cbet_gain_mode="kernel"`` (K4 "tri"): its
    deviation from the kernel_cell solve as a share of the CBET effect,
@@ -175,11 +181,12 @@ def smooth_gain(rng, cfg, scale, dtype, device, block=4):
     return out
 
 
-def window_case(cfg, ctx, device, dtype, warm_steps, gain):
+def window_case(cfg, ctx, device, dtype, warm_steps, gain, rows=None):
     """One kernel_cell window of the scene's CBET layout after
     ``warm_steps`` ordinary steps: ``(state, args)`` with ``state`` the
     post-window state and ``args`` the window-gain deposit's arguments
-    after ``edep`` (``models.cbet.make_window_advance``)."""
+    after ``edep`` (``models.cbet.make_window_advance``).  A dict passed as
+    ``rows`` receives the window's rows (``make_window_advance``'s)."""
     from cbet_raytracing_3d_tpu_torch.models import cbet
     from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
     state, rpg = cbet_layout(cfg, ctx, device, dtype)
@@ -188,10 +195,43 @@ def window_case(cfg, ctx, device, dtype, warm_steps, gain):
     for _ in range(warm_steps):
         state, _ = step(state, field4)
     st, w = cbet.make_window_advance(cfg)(state, field4)
+    if rows is not None:
+        rows.update(w)
     args = (w["cx"], w["cy"], w["cz"], w["fx"], w["fy"], w["fz"], w["inc"],
             w["ds"], w["u_nogain"], st.uray_init, w["lcx"], w["lcy"],
             w["lcz"], gain, rpg, cbet.GAIN_CLIP, cfg.stop_fraction)
     return st, args
+
+
+def k2_window_args(w, gamma, rays_per_group):
+    """K2's arguments after the grids on the main path's window: the
+    window's step-major rows with the intensity contributions
+    ``contrib0 * gamma`` (``models/cbet.py``'s ``window_step``; the CBET
+    grid is the full grid at ``cbet_grid_downsample`` 1)."""
+    flat = [w[k].reshape(-1) for k in ("cx", "cy", "cz", "fx", "fy", "fz")]
+    contrib = (w["contrib0"] * gamma).reshape(-1)
+    return (*flat, contrib, rays_per_group, w["cx"].shape[1])
+
+
+def in_turns(fns: dict, reps: int) -> dict:
+    """Milliseconds per call of each of two ``fns`` (name -> callable),
+    CUDA events over ``reps`` calls, timed in turns a, b, b, a; returns the
+    mean of each one's two readings."""
+    a, b = fns
+    got = {a: [], b: []}
+    for name in (a, b, b, a):
+        got[name].append(cuda_ms(fns[name], reps))
+    return {k: sum(v) / len(v) for k, v in got.items()}
+
+
+def box_share(launch, device) -> tuple:
+    """(blocks with rows, blocks that took the tile box) of one launch:
+    ``launch(tally)`` runs the kernel with an int32 (2,) tally."""
+    import torch
+    tally = torch.zeros(2, dtype=torch.int32, device=device)
+    launch(tally)
+    torch.cuda.synchronize()
+    return int(tally[0]), int(tally[1])
 
 
 def gain_case(rng, cfg, ctx, device):
@@ -236,6 +276,13 @@ def bound(nbytes: float, nops: float, peak: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def deposit_bytes(inc) -> int:
+    """The bytes a trilinear deposit must read of its f32 rows: every row's
+    contribution, and the three int32 cells and three fracs only of the rows
+    that deposit (contribution != 0)."""
+    return 4 * inc.numel() + 24 * int((inc != 0).sum())
+
+
 def touched(grid) -> int:
     """Grid nodes a deposit wrote (non-zero after a deposit into zeros):
     each is read and written once."""
@@ -274,17 +321,30 @@ def gain_nodes(cfg, cells, fracs, live, rows_per_group, tri: bool) -> int:
 
 def k4_bound(cfg, args, gain_out, grid, tri: bool, gain_only: bool) -> dict:
     """The window-gain deposit's bound from one call's arguments (``args``
-    after ``edep``), its gamma and the plain version's grid from zeros."""
-    streams = args[:9] if tri else args[:9] + args[10:13]
-    n_steps, n = args[0].shape
+    after ``edep``), its gamma and the plain version's grid from zeros.
+
+    A row is read only up to its ray's first death in the window (a later
+    row's gamma is 0 whatever it holds): its ds, u_nogain and inc; the gain
+    sample's cells (the entry cell, or "tri" the deposit corners) only
+    where ds != 0; the deposit's cells and fracs only where inc != 0."""
+    import torch
+    n = args[0].shape[1]
     rpg = args[11] if tri else args[14]
-    live = args[7] != 0                        # ds: alive at step entry
+    inc, ds = args[6], args[7]
+    # rows at or before the first death: step 0, or no death up to step j-1
+    read = torch.ones_like(ds, dtype=torch.bool)
+    read[1:] = gain_out[:-1] != 0
+    live = read & (ds != 0)                    # the gain factor is needed
+    dep_rows = read & (inc != 0)
     if tri:
         nodes = gain_nodes(cfg, args[0:3], args[3:6], live, rpg, True)
+        corner_rows = live | dep_rows
+        nbytes = 24 * int(corner_rows.sum())
     else:
         nodes = gain_nodes(cfg, args[10:13], None, live, rpg, False)
-    nbytes = (4 * len(streams) * n_steps * n + 4 * n + 4 * nodes
-              + 4 * gain_out.numel() + 4 * n)
+        nbytes = 12 * int(live.sum()) + 24 * int(dep_rows.sum())
+    nbytes += (12 * int(read.sum()) + 4 * n + 4 * nodes
+               + 4 * gain_out.numel() + 4 * n)
     ops_row = GAIN_STEP_OPS + DEPOSIT_OPS + (TRI_SAMPLE_OPS if tri else 0)
     if not gain_only:
         nbytes += 8 * touched(grid)
@@ -386,8 +446,9 @@ def main() -> int:
                     f"{err:.3e} total-rel {tot:.3e} max-abs {max_abs:.6e} "
                     "overflow 0")
             if f32:
-                # rows: 3 int32 cells, 3 fracs and inc; the nodes written
-                kb = bound(28 * n_rows + 8 * touched(want),
+                # each row's inc, the cells and fracs of the rows that
+                # deposit, the nodes written
+                kb = bound(deposit_bytes(args[6]) + 8 * touched(want),
                            DEPOSIT_OPS * int((args[6] != 0).sum()), PEAK_F32)
                 grid_k = torch.zeros(shape, dtype=dt, device=dev)
                 ms = cuda_ms(lambda: dep.deposit(grid_k, *args), 20)
@@ -710,6 +771,10 @@ def main() -> int:
          "source": f"{src}/deposit.cu",
          "replaces": "cbet_raytracing_3d_tpu/ops/pallas_deposit.py:527",
          "launches": n9["K2"], **kern8["K2"]},
+        {"name": "deposit_grouped (one synthetic step)", "route": "cuda",
+         "source": f"{src}/deposit.cu",
+         "replaces": "cbet_raytracing_3d_tpu/ops/pallas_deposit.py:527",
+         "launches": n9["K2"], **kern8["K2 step"]},
         {"name": "gain", "route": "cuda", "source": f"{src}/gain.cu",
          "replaces": "cbet_raytracing_3d_tpu/ops/pallas_gain.py:58",
          "launches": n9["K3"], **kern8["K3"]},
@@ -739,8 +804,12 @@ def main() -> int:
 
 def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
     """Phase 8: K2, K3 and K4 against their plain versions on the card at
-    the OMEGA CBET path's shapes.  Returns (report lines, per-kernel
-    {max_abs_err, ms, plain_ms} of the float32 cases)."""
+    the OMEGA CBET path's shapes: K2 on one synthetic step and on the main
+    path's window, K4 "cell" on that window; K2 and K4 timed with the tile
+    box (the kernels' default) and on the direct path (capacity 0) in
+    turns, with the share of blocks that took the box.  Returns (report
+    lines, per-kernel {max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms, direct_ms, box_share} of the float32 cases)."""
     import torch
     from cbet_raytracing_3d_tpu_torch.models import cbet
     from cbet_raytracing_3d_tpu_torch.ops import deposit as dep
@@ -755,7 +824,9 @@ def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
         return (rel_l2(g64, w64), float(np.abs(g64 - w64).max()),
                 bool(np.isfinite(g64).all()))
 
-    # K2: one step of the CBET layout's rows into 60 beam grids
+    # K2, one synthetic step of the CBET layout's rows into 60 beam grids:
+    # boundary exits, dead rows, tiles scattered over the grid (the blocks
+    # whose box does not fit take the direct path)
     _, rpg = cbet_layout(cfg, ctx, "cpu")
     n = rpg * cfg.nbeams
     gshape = (cfg.nbeams,) + cfg.edep_shape
@@ -779,18 +850,28 @@ def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
             pass
         else:
             raise RuntimeError("K2 took more rays than its groups hold")
-        line = (f"K2 grouped deposit {dt} {n} rows into {gshape}: rel-L2 "
-                f"{err:.3e} max-abs {mx:.6e} (< {tol:g}); over-count "
-                "refused")
+        line = (f"K2 grouped deposit, one synthetic step, {dt} {n} rows into "
+                f"{gshape}: rel-L2 {err:.3e} max-abs {mx:.6e} (< {tol:g}); "
+                "over-count refused")
         if dt == torch.float32:
-            kb = bound(28 * n + 8 * touched(want),
+            kb = bound(deposit_bytes(args[6]) + 8 * touched(want),
                        DEPOSIT_OPS * int((args[6] != 0).sum()), PEAK_F32)
-            ms = cuda_ms(lambda: dep.deposit_grouped(got, *args, rpg), 20)
+            blocks = box_share(lambda t: dep._launch_grouped(
+                got, *args, rpg, tally=t), dev)
+            ms = in_turns({
+                "box": lambda: dep.deposit_grouped(got, *args, rpg),
+                "direct": lambda: dep._launch_grouped(got, *args, rpg,
+                                                      box_nodes=0)}, 20)
             ms_p = cuda_ms(
                 lambda: dep.deposit_grouped_reference(want, *args, rpg), 5)
-            kern["K2"] = {"max_abs_err": mx, "ms": ms, "plain_ms": ms_p,
-                          **kb, "library_ms": None}
-            line += f"; kernel {ms:.4f} ms plain {ms_p:.4f} ms per call"
+            kern["K2 step"] = {"max_abs_err": mx, "ms": ms["box"],
+                               "plain_ms": ms_p, **kb, "library_ms": None,
+                               "direct_ms": ms["direct"],
+                               "box_share": blocks[1] / max(1, blocks[0])}
+            line += (f"; box {ms['box']:.4f} ms direct {ms['direct']:.4f} ms"
+                     f" (in turns) plain {ms_p:.4f} ms per call, bound "
+                     f"{kb['bound_ms']:.4f} ms ({kb['bound_by']}); blocks in "
+                     f"the box {blocks[1]} of {blocks[0]}")
         lines.append(line)
         del args, got, want
 
@@ -823,12 +904,14 @@ def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
         lines.append(line)
     del pu, rp, inten
 
-    # K4: an OMEGA window 150 steps in (3/8 of nt; the last rays die near
-    # step 250), smooth gain of both signs
+    # K4 "cell" and K2 on the main path's window: an OMEGA window 150 steps
+    # in (3/8 of nt; the last rays die near step 250), smooth gain of both
+    # signs; K2 deposits that window's contributions contrib0 * gamma
     for dt in (torch.float32, torch.float64):
         gain = smooth_gain(np.random.default_rng(SEED + 4), cfg, 40.0, dt,
                            dev)
-        st, args = window_case(cfg, ctx, dev, dt, 3 * cfg.nt // 8, gain)
+        w = {}
+        st, args = window_case(cfg, ctx, dev, dt, 3 * cfg.nt // 8, gain, w)
         before = gdep.LAUNCHES
         e_k, of_k, gam_k, u_k = gdep.deposit_gain_window(
             torch.zeros(cfg.edep_shape, dtype=dt, device=dev), *args)
@@ -852,17 +935,72 @@ def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
                 f"{errs[0][0]:.3e} gamma {errs[1][0]:.3e} uout "
                 f"{errs[2][0]:.3e} (< {tol:g}); alive identical; "
                 f"{mid} rays die mid-window")
+        k2a = k2_window_args(w, gam_p, args[14])
+        g2shape = (cfg.nbeams,) + cfg.edep_shape
+        before2 = dep.GROUPED_LAUNCHES
+        i_k, of2_k = dep.deposit_grouped(
+            torch.zeros(g2shape, dtype=dt, device=dev), *k2a)
+        i_p, of2_p = dep.deposit_grouped_reference(
+            torch.zeros(g2shape, dtype=dt, device=dev), *k2a)
+        err2, mx2, fin2 = compare(i_k, i_p)
+        if not (err2 < tol and fin2 and int(of2_k) == int(of2_p) == 0
+                and dep.GROUPED_LAUNCHES == before2 + 1):
+            raise RuntimeError(f"K2 on the window vs plain failed ({dt}): "
+                               f"rel-L2 {err2}, overflow "
+                               f"{int(of2_k)}/{int(of2_p)}")
+        n2 = k2a[0].shape[0]
+        line2 = (f"K2 grouped deposit on the main path's window {dt} "
+                 f"{n2 // st.n} x {st.n} rows into {g2shape}: rel-L2 "
+                 f"{err2:.3e} max-abs {mx2:.6e} (< {tol:g}); overflow 0")
         if dt == torch.float32:
             kb = k4_bound(cfg, args, gam_p, e_p, tri=False, gain_only=False)
             grid = torch.zeros(cfg.edep_shape, dtype=dt, device=dev)
-            ms = cuda_ms(lambda: gdep.deposit_gain_window(grid, *args), 20)
+            streams, lags = args[:9], args[10:13]
+            rest = (args[13], args[14], args[15], args[16])
+
+            def k4_direct(tally=None, box_nodes=0):
+                return gdep._launch(grid, streams, args[9], lags, rest[0],
+                                    *rest[1:], False, box_nodes=box_nodes,
+                                    tally=tally)
+            blocks = box_share(lambda t: k4_direct(t, dep.BOX_DEFAULT), dev)
+            ms = in_turns({
+                "box": lambda: gdep.deposit_gain_window(grid, *args),
+                "direct": k4_direct}, 20)
             ms_p = cuda_ms(
                 lambda: gdep.deposit_gain_window_reference(grid, *args), 5)
-            kern["K4"] = {"max_abs_err": max(e[1] for e in errs), "ms": ms,
-                          "plain_ms": ms_p, **kb, "library_ms": None}
-            line += f"; kernel {ms:.4f} ms plain {ms_p:.4f} ms per call"
-        lines.append(line)
-        del gain, args, st
+            kern["K4"] = {"max_abs_err": max(e[1] for e in errs),
+                          "ms": ms["box"], "plain_ms": ms_p, **kb,
+                          "library_ms": None, "direct_ms": ms["direct"],
+                          "box_share": blocks[1] / max(1, blocks[0])}
+            line += (f"; box {ms['box']:.4f} ms direct {ms['direct']:.4f} ms"
+                     f" (in turns) plain {ms_p:.4f} ms per call, bound "
+                     f"{kb['bound_ms']:.4f} ms ({kb['bound_by']}); blocks in "
+                     f"the box {blocks[1]} of {blocks[0]}")
+            # K2's bound at the window shape: each row's contribution, the
+            # cells and fracs of the rows that deposit, the nodes written
+            kb2 = bound(deposit_bytes(k2a[6]) + 8 * touched(i_p),
+                        DEPOSIT_OPS * int((k2a[6] != 0).sum()), PEAK_F32)
+            ib = torch.zeros(g2shape, dtype=dt, device=dev)
+            blocks2 = box_share(lambda t: dep._launch_grouped(
+                ib, *k2a, tally=t), dev)
+            ms2 = in_turns({
+                "box": lambda: dep.deposit_grouped(ib, *k2a),
+                "direct": lambda: dep._launch_grouped(ib, *k2a,
+                                                      box_nodes=0)}, 20)
+            ms2_p = cuda_ms(lambda: dep.deposit_grouped_reference(ib, *k2a),
+                            5)
+            kern["K2"] = {"max_abs_err": mx2, "ms": ms2["box"],
+                          "plain_ms": ms2_p, **kb2, "library_ms": None,
+                          "direct_ms": ms2["direct"],
+                          "box_share": blocks2[1] / max(1, blocks2[0])}
+            line2 += (f"; box {ms2['box']:.4f} ms direct "
+                      f"{ms2['direct']:.4f} ms (in turns) plain "
+                      f"{ms2_p:.4f} ms per call, bound "
+                      f"{kb2['bound_ms']:.4f} ms ({kb2['bound_by']}); "
+                      f"blocks in the box {blocks2[1]} of {blocks2[0]}")
+            del grid, ib
+        lines += [line, line2]
+        del gain, args, st, w, k2a, i_k, i_p
     return lines, kern
 
 
@@ -872,6 +1010,7 @@ def optin_kernels_vs_plain(cfg, ctx, dev):
     plain versions on phase 8's OMEGA window, f32 and f64.  Returns (report
     lines, per-variant {max_abs_err, ms, plain_ms} of the float32 cases)."""
     import torch
+    from cbet_raytracing_3d_tpu_torch.ops import deposit as dep
     from cbet_raytracing_3d_tpu_torch.ops import gain_deposit as gdep
 
     lines, kern = [], {}
@@ -931,12 +1070,30 @@ def optin_kernels_vs_plain(cfg, ctx, dev):
                 kb = k4_bound(cfg, a, g_p, e_p - e0, tri=name.startswith(
                     "tri"), gain_only=gain_only)
                 grid = e0.clone()
-                ms = cuda_ms(lambda: fn(grid, *a, gain_only=gain_only), 20)
                 ms_p = cuda_ms(lambda: ref(grid, *a, gain_only=gain_only), 5)
                 kern[name] = {"max_abs_err": max(e[1] for e in errs),
-                              "ms": ms, "plain_ms": ms_p, **kb,
-                              "library_ms": None}
-                line += f"; kernel {ms:.4f} ms plain {ms_p:.4f} ms per call"
+                              "plain_ms": ms_p, **kb, "library_ms": None}
+                if name == "tri":
+                    def tri_direct(tally=None, box_nodes=0):
+                        return gdep._launch(grid, a[:9], a[9], (), *a[10:],
+                                            False, box_nodes=box_nodes,
+                                            tally=tally)
+                    blocks = box_share(
+                        lambda t: tri_direct(t, dep.BOX_DEFAULT), dev)
+                    ms = in_turns({"box": lambda: fn(grid, *a),
+                                   "direct": tri_direct}, 20)
+                    kern[name].update(
+                        ms=ms["box"], direct_ms=ms["direct"],
+                        box_share=blocks[1] / max(1, blocks[0]))
+                    line += (f"; box {ms['box']:.4f} ms direct "
+                             f"{ms['direct']:.4f} ms (in turns) plain "
+                             f"{ms_p:.4f} ms per call; blocks in the box "
+                             f"{blocks[1]} of {blocks[0]}")
+                else:
+                    kern[name]["ms"] = cuda_ms(
+                        lambda: fn(grid, *a, gain_only=gain_only), 20)
+                    line += (f"; kernel {kern[name]['ms']:.4f} ms plain "
+                             f"{ms_p:.4f} ms per call")
             lines.append(line)
         del gain, args, tri_args, st
     return lines, kern

@@ -147,7 +147,7 @@ def test_tri_solve_converges_near_lookup():
     res_k = cbet.cbet_solve(cfg.replace(cbet_gain_mode="kernel"), ctx, "cpu")
     assert res_l.converged and res_k.converged
     assert res_k.stats["gain_mode"] == "kernel"
-    base, _ = rt.trace(ctx)
+    base, _ = rt.trace(ctx, "cpu")
     effect = _rel_l2(res_l.edep, base)
     dev = _rel_l2(res_k.edep, res_l.edep)
     assert effect > 1e-4, "no CBET effect in the test scene"

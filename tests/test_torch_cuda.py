@@ -1,8 +1,9 @@
 """The port on the card: the CUDA kernels (the deposit K1, the grouped
 deposit K2, the gain reduction K3, the window-gain deposit K4 in its "cell",
 "tri" and gain-only forms, the tensor-core probe K6) against their plain
-PyTorch versions, traces on the card against the CPU trace and the config-1
-golden, the on-card init against the host prepare, a compacted trace
+PyTorch versions (K2 and K4 also through each path of their tile box),
+traces on the card against the CPU trace and the config-1 golden, the
+on-card init against the host prepare, a compacted trace
 against the uncompacted one, and CBET solves (with the opt-ins) through the
 kernels against solves through the plain versions.  Marked ``cuda``; each
 test skips without a CUDA device.
@@ -153,6 +154,78 @@ def test_grouped_kernel_matches_plain(cuda, dtype, tol):
         dep.deposit_grouped(got, *args, rpg - 1, groups * rpg)
 
 
+def _k2_window(seed, grid, n_rays, batch, coherent):
+    """K2 rows of a step-major window (``batch`` steps of ``n_rays`` rays):
+    ``coherent`` keeps each ray within one cell of where it starts (tiles
+    of 256 rays in 10-cell boxes, so each block's box stays small), else
+    every step's tiles scatter over the grid; fracs beyond +-0.5 (negative
+    weights) and dead rows in both."""
+    rng = np.random.default_rng(seed)
+    if not coherent:
+        return deposit_rows(rng, grid, batch * n_rays, boundary=0.2)
+    cell0, _, _ = deposit_rows(rng, grid, n_rays, boundary=0.0)
+    steps = [deposit_rows(rng, grid, n_rays, boundary=0.2)
+             for _ in range(batch)]
+    cell = [np.concatenate([np.clip(c + rng.integers(-1, 2, n_rays), 0,
+                                    g - 1) for _ in range(batch)])
+            .astype(np.int32) for c, g in zip(cell0, grid)]
+    frac = [np.concatenate([st[1][a] for st in steps]) for a in range(3)]
+    inc = np.concatenate([st[2] for st in steps])
+    return cell, frac, inc
+
+
+K2_BOX_CASES = {
+    # case: (coherent, batch, rays_per_group, dead rays, what the blocks do)
+    "coherent window": (True, 5, 2560, 0, "box"),
+    "scattered window": (False, 5, 2560, 0, "some direct"),
+    "groups of 300 rays": (True, 5, 300, 0, "some direct"),
+    "a block of dead rays": (True, 5, 2560, 256, "box"),
+    "one step": (True, 1, 2560, 0, "box"),
+    "10-step window": (True, 10, 2560, 0, "box"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K2_BOX_CASES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_grouped_kernel_box_paths(cuda, case, dtype, tol):
+    """K2 through its shared-memory tile box against the plain version and
+    against the direct path (capacity 0), in the cases that send blocks to
+    the box, to the direct path within the box kernel (a box beyond the
+    capacity, a block spanning two groups), on one step and on a long
+    window; the tally counts the blocks that took the box."""
+    coherent, batch, rpg, dead, expect = K2_BOX_CASES[case]
+    groups, grid = 4, (20, 18, 16)
+    n_rays = groups * 2560
+    cell, frac, inc = _k2_window(7, grid, n_rays, batch, coherent)
+    for j in range(batch):
+        inc[j * n_rays + 256:j * n_rays + 256 + dead] = 0.0
+    args = to_device(cell, frac, inc, dtype, cuda)
+    shape = (-(-n_rays // rpg),) + tuple(g + 2 for g in grid)
+    before = dep.GROUPED_LAUNCHES
+    got, of = dep.deposit_grouped(torch.zeros(shape, dtype=dtype,
+                                              device=cuda), *args, rpg,
+                                  n_rays)
+    assert dep.GROUPED_LAUNCHES == before + 1
+    want, of_p = dep.deposit_grouped_reference(
+        torch.zeros(shape, dtype=dtype, device=cuda), *args, rpg, n_rays)
+    tally = torch.zeros(2, dtype=torch.int32, device=cuda)
+    boxed = torch.zeros(shape, dtype=dtype, device=cuda)
+    dep._launch_grouped(boxed, *args, rpg, n_rays, tally=tally)
+    direct = torch.zeros(shape, dtype=dtype, device=cuda)
+    of_d = dep._launch_grouped(direct, *args, rpg, n_rays, box_nodes=0)
+    assert dep.GROUPED_LAUNCHES == before + 1
+    assert int(of) == int(of_p) == int(of_d) == 0
+    assert rel_l2(got.cpu(), want.cpu()) < tol
+    assert rel_l2(boxed.cpu(), direct.cpu()) < tol
+    blocks, in_box = (int(x) for x in tally.cpu())
+    assert blocks == -(-n_rays // 256) - dead // 256
+    if expect == "box":
+        assert in_box == blocks
+    else:
+        assert 0 <= in_box < blocks
+
+
 @pytest.mark.parametrize("bo", [3, 1])
 def test_gain_kernel_matches_plain(cuda, cbet_ctx, bo):
     from chip_smoke import gain_case
@@ -256,6 +329,117 @@ def test_gain_window_optin_kernels_match_plain(cuda, cbet_ctx, tri,
         assert rel_l2(e_k.cpu(), e_p.cpu()) < tol
     thr = cfg.stop_fraction * st.uray_init
     assert torch.equal(st.alive & (u_k > thr), st.alive & (u_p > thr))
+
+
+def _k4_window(seed, n_beams, rpg, batch, coherent, dtype, device):
+    """Synthetic window-gain arguments after ``edep`` ("cell" order, grid
+    20 x 18 x 16): ``_k2_window``'s rows, path lengths, gain-free energies
+    falling so that many rays die mid-window, entry cells one cell from
+    the deposit cells, and a normal gain table of both signs."""
+    grid = (20, 18, 16)
+    n_rays = n_beams * rpg
+    cell, frac, inc = _k2_window(seed, grid, n_rays, batch, coherent)
+    rng = np.random.default_rng(seed + 1)
+    uinit = rng.uniform(0.5, 2.0, n_rays) * 1e12
+    decay = rng.uniform(0.0, 1.0, n_rays)
+    u_nogain = np.concatenate([uinit * np.exp(-decay * (j + 1))
+                               for j in range(batch)])
+    ds = rng.uniform(0.5, 1.5, batch * n_rays) * (inc != 0)
+    lag = [np.clip(c + rng.integers(-1, 2, c.size), 0, g - 1).astype(np.int32)
+           for c, g in zip(cell, grid)]
+    gain = rng.standard_normal((n_beams, int(np.prod(grid)))) * 0.05
+
+    def t(a, dt=dtype, shape=(batch, n_rays)):
+        return torch.as_tensor(a, dtype=dt, device=device).reshape(shape)
+    ints = [t(a, torch.int32) for a in cell]
+    flts = [t(a) for a in (*frac, inc, ds, u_nogain)]
+    return grid, (*ints, *flts, t(uinit, shape=(n_rays,)),
+                  *(t(a, torch.int32) for a in lag),
+                  t(gain, shape=gain.shape), rpg, 0.1, 0.05)
+
+
+K4_BOX_CASES = {
+    # case: (coherent, batch, rays per beam, dead rays, capacity, expect)
+    "coherent window": (True, 5, 2560, 0, -1, "box"),
+    "capacity 1": (True, 5, 2560, 0, 1, "direct"),
+    "scattered window": (False, 5, 2560, 0, -1, "some direct"),
+    "beams of 300 rays": (True, 5, 300, 0, -1, "box"),
+    "a block of dead rays": (True, 5, 2560, 256, -1, "box"),
+    "one step": (True, 1, 2560, 0, -1, "box"),
+    "10-step window": (True, 10, 2560, 0, -1, "box"),
+    "the CBET window": (None, None, None, 0, -1, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K4_BOX_CASES))
+@pytest.mark.parametrize("tri", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_gain_window_box_paths(cuda, cbet_ctx, case, tri, dtype, tol):
+    """K4 "cell" and "tri" with the edep deposit through the tile box,
+    against the plain version (edep, gamma, uout, overflow) and against the
+    direct path (capacity 0): a coherent window (every block in the box),
+    a capacity of one node (every block falls back), scattered tiles (some
+    fall back), beams that are not whole blocks (a block spans two beams
+    and keeps the box: one edep grid), a block whose rays are all dead, one
+    step (the per-step form), a 10-step window, and the CBET window of the
+    small scene; the tally counts the blocks that took the box."""
+    coherent, batch, rpg, dead, cap, expect = K4_BOX_CASES[case]
+    if case == "the CBET window":
+        cfg, _, args = _window(cuda, cbet_ctx, dtype, False)
+        shape = cfg.edep_shape
+    else:
+        grid, args = _k4_window(8, 4, rpg, batch, coherent, dtype, cuda)
+        shape = tuple(g + 2 for g in grid)
+        if dead:
+            args = list(args)
+            for k in (6, 7):                  # inc and ds of rays 256..511
+                args[k] = args[k].clone()
+                args[k][:, 256:256 + dead] = 0.0
+            args = tuple(args)
+    streams, uinit, lags = args[:9], args[9], args[10:13]
+    gain, rpg, clip, stop = args[13:]
+    if tri:
+        fn, ref = (gdep.deposit_gain_window_tri,
+                   gdep.deposit_gain_window_tri_reference)
+        call, lags, counter = args[:10] + args[13:], (), "TRI_LAUNCHES"
+    else:
+        fn, ref = (gdep.deposit_gain_window,
+                   gdep.deposit_gain_window_reference)
+        call, counter = args, "LAUNCHES"
+    before = getattr(gdep, counter)
+    e_k, of_k, g_k, u_k = fn(torch.zeros(shape, dtype=dtype, device=cuda),
+                             *call)
+    assert getattr(gdep, counter) == before + 1
+    e_p, of_p, g_p, u_p = ref(torch.zeros(shape, dtype=dtype, device=cuda),
+                              *call)
+    tally = torch.zeros(2, dtype=torch.int32, device=cuda)
+    outs = {}
+    for name, nodes in (("box", cap), ("direct", 0)):
+        outs[name] = gdep._launch(
+            torch.zeros(shape, dtype=dtype, device=cuda), streams, uinit,
+            lags, gain, rpg, clip, stop, False, box_nodes=nodes,
+            tally=tally if name == "box" else None)
+    assert getattr(gdep, counter) == before + 1
+    assert int(of_k) == int(of_p) == int(outs["direct"][1]) == 0
+    for got, want in ((e_k, e_p), (g_k, g_p), (u_k, u_p),
+                      (outs["box"][0], outs["direct"][0])):
+        assert rel_l2(got.cpu(), want.cpu()) < tol
+    assert torch.equal(outs["box"][2], outs["direct"][2])
+    assert float(e_p.abs().max()) > 0
+    blocks, in_box = (int(x) for x in tally.cpu())
+    if expect is None:                        # the small scene: any share
+        assert 0 <= in_box <= blocks
+        return
+    dying = (g_p[0] > 0) & (g_p[-1] == 0)
+    assert batch == 1 or int(dying.sum()) > 0
+    assert blocks == -(-uinit.shape[0] // 256) - dead // 256
+    if expect == "box":
+        assert in_box == blocks
+    elif expect == "direct":
+        assert in_box == 0
+    else:
+        assert 0 <= in_box < blocks
 
 
 def test_gain_window_tri_rejects_bad_arguments(cuda, cbet_ctx):

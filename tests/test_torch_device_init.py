@@ -101,9 +101,9 @@ def test_device_init_trace_equals_host_trace(dtype):
     the live rays come in the same order and dead rows add nothing, so the
     plain (``index_add_``) deposit gives the same grid bit for bit."""
     cfg = Config(**SCENE, dtype=dtype)
-    e_h, s_h = rt.trace(rt.prepare(cfg))
+    e_h, s_h = rt.trace(rt.prepare(cfg), "cpu")
     ctx_d = rt.prepare_device(cfg, device="cpu")
-    e_d, s_d = rt.trace(ctx_d)
+    e_d, s_d = rt.trace(ctx_d, "cpu")
     assert np.abs(e_h).max() > 0
     assert np.array_equal(e_d, e_h)
     assert int(s_d.alive.sum()) == int(s_h.alive.sum())
@@ -121,8 +121,8 @@ def test_trace_stats_of_a_compact_context():
     cfg = Config(**SCENE, dtype="float64")
     ctx_d = rt.prepare_device(cfg, device="cpu")
     ctx_h = rt.prepare(cfg)
-    _, s_d = rt.trace(ctx_d)
-    _, s_h = rt.trace(ctx_h)
+    _, s_d = rt.trace(ctx_d, "cpu")
+    _, s_h = rt.trace(ctx_h, "cpu")
     st_d = rt.trace_stats(ctx_d, s_d)
     st_h = rt.trace_stats(ctx_h, s_h, rt.traced_state(ctx_h, "cpu"))
     for key in ("rays_total", "rays_launched", "rays_alive_at_end",

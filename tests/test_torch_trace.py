@@ -159,7 +159,7 @@ def test_live_tile_trace_matches_jax(dtype, profiles):
         jctx.cfg, jctx.layout.rays_per_tile, backend="scatter"))(
             jctx.field4, js0)
     cfg = Config(**kw)
-    got_np, state = rt.trace(rt.prepare(cfg))
+    got_np, state = rt.trace(rt.prepare(cfg), "cpu")
     tol = 1e-12 if dtype == "float64" else 1e-5
     assert _rel_l2(got_np, np.asarray(want, np.float64)) < tol
     assert np.array_equal(state.alive.numpy(), np.asarray(jstate.alive))
