@@ -120,9 +120,9 @@ class Config:
     # boundary exit rows.  tiles_per_block is read only as the padding of
     # the slot layouts (build_tile_layout, models/cbet.live_tile_slots), so
     # slots match the JAX package's one for one; deposit_batch_steps
-    # is the window of the CBET trace (the kernel gain modes, and the
-    # lookup where it divides the chunk lengths; the plain trace deposits
-    # every step).
+    # is the window of every trace: the plain trace and the CBET lookup
+    # deposit once per window where it divides the chunk lengths (else every
+    # step), and the kernel gain modes need it to.
     deposit_box_x: int = 32
     deposit_box_y: int = 32
     deposit_box_z: int = 32

@@ -241,20 +241,8 @@ def resolve_cbet_ops(cfg: Config, device) -> CbetOps:
     return kernel_ops()
 
 
-def _chunks(cfg: Config) -> tuple[int, int, int]:
-    """``(chunk, n_chunks, last_chunk)``: the trace's chunk lengths."""
-    chunk = max(1, min(cfg.chunk_steps, cfg.nt))
-    n_chunks = -(-cfg.nt // chunk)
-    return chunk, n_chunks, cfg.nt - (n_chunks - 1) * chunk
-
-
-def batched(cfg: Config) -> bool:
-    """Whether the CBET trace advances whole windows of
-    ``deposit_batch_steps`` steps between deposits: the batch is > 1 and
-    divides both chunk lengths (``models/cbet.py:491-494``)."""
-    chunk, _, last = _chunks(cfg)
-    b = cfg.deposit_batch_steps
-    return b > 1 and not (chunk % b or last % b)
+#: whether the traces advance whole windows (``raytracer.batched``)
+batched = rt.batched
 
 
 def check_cbet_config(cfg: Config) -> None:
@@ -286,7 +274,7 @@ def check_cbet_config(cfg: Config) -> None:
                 f"cbet_gain_mode={cfg.cbet_gain_mode!r} subsumes gain "
                 "striding — set cbet_gain_stride=1")
         if not win:
-            chunk, _, last = _chunks(cfg)
+            chunk, _, last = rt.chunk_lengths(cfg)
             raise ValueError(
                 f"cbet_gain_mode={cfg.cbet_gain_mode!r} requires "
                 "deposit_batch_steps > 1 dividing the chunk lengths "
@@ -391,7 +379,7 @@ def make_cbet_trace_fn(cfg: Config, ctx: rt.TraceContext,
     tpg = (tiles_per_group if tiles_per_group is not None
            else ctx.layout.tiles_per_beam)
     rpt = ctx.layout.rays_per_tile
-    chunk, n_chunks, _ = _chunks(cfg)
+    chunk, n_chunks, _ = rt.chunk_lengths(cfg)
     kernel_gain = cfg.cbet_gain_mode != "lookup"
     tri = cfg.cbet_gain_mode == "kernel"
     # check_cbet_config made sure the kernel modes and the strided lookup
@@ -453,7 +441,8 @@ def make_cbet_trace_fn(cfg: Config, ctx: rt.TraceContext,
         ib, of = o.grouped(ib, *icell, *ifrac, contrib, rays_per_group,
                            state.n)
         if not light:
-            edep, of_e = o.deposit(edep, cx, cy, cz, fx, fy, fz, inc)
+            edep, of_e = o.deposit(edep, cx, cy, cz, fx, fy, fz, inc,
+                                   state.n)
             of = of + of_e
         return state, edep, ib, of
 

@@ -11,7 +11,9 @@ tensor steps over all rays of all beams:
   precomputed ``(P, 4)`` node-field table (``fields.py``; the gradient kick
   is carried one step in the ray state),
 * deposition is the CUDA kernel on the card and its plain ``index_add_``
-  version on the CPU (``ops/deposit.py``), once per step,
+  version on the CPU (``ops/deposit.py``), once per window of
+  ``deposit_batch_steps`` steps where the windows divide the chunks
+  (:func:`batched`), else once per step,
 * early ray termination (the CUDA ``break``, launch_ray_XZ.cu:351-356) is an
   ``alive`` mask with frozen state, and the trace stops at the first chunk
   boundary where no ray is alive; optionally it drops dead tiles there
@@ -21,7 +23,7 @@ tensor steps over all rays of all beams:
 
 Every per-ray tensor is 1-D (structure of arrays).  Positions are carried
 cell-relative (``cell + frac``), so float32 rounding stays at the scale of
-one cell; per-step deposits accumulate into a grid of the ray dtype for
+one cell; the deposits accumulate into a grid of the ray dtype for
 ``chunk_steps`` steps, then promote into a float64 master grid.
 """
 
@@ -476,20 +478,29 @@ def make_deferred_step_fn(cfg: Config):
     and returns the deposit inputs (cell, frac, masked increment).  The
     gradient kick at the current cell was gathered by the previous step;
     the one gather per step fetches kick-for-next-step + absorption at the
-    new cell in one (N, 4) row."""
+    new cell in one (N, 4) row.
+
+    ``step(state, field4, out=None)``: ``out``, seven (N,) tensors (three
+    int32 cells, three fracs and the increment, of the ray dtype), receives
+    the deposit inputs in place of new tensors, so a window's rows land in
+    one buffer without a copy; the values are the same."""
     nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
     tol = cfg.cell_tol
     stop_frac = cfg.stop_fraction
     absorption = cfg.absorption
     nvec = (nx, ny, nz)
+    zero = {}       # (dtype, device) -> 0-dim zero: where(out=) takes tensors
 
-    def step(state: RayState, field4: torch.Tensor):
+    def step(state: RayState, field4: torch.Tensor, out=None):
+        o = out if out is not None else (None,) * 7
         vel = tuple(state.vel[ax] - state.kick[ax] for ax in range(3))
         frac = tuple(state.frac[ax] + vel[ax] for ax in range(3))
         dsel = tuple(_reindex_axis(state.cell[ax], frac[ax], nvec[ax], tol)
                      for ax in range(3))
-        cell = tuple(state.cell[ax] + dsel[ax] for ax in range(3))
-        frac = tuple(frac[ax] - dsel[ax].to(frac[ax].dtype) for ax in range(3))
+        cell = tuple(torch.add(state.cell[ax], dsel[ax], out=o[ax])
+                     for ax in range(3))
+        frac = tuple(torch.sub(frac[ax], dsel[ax].to(frac[ax].dtype),
+                               out=o[3 + ax]) for ax in range(3))
         flat2 = ((cell[0].to(torch.int64) * ny + cell[1]) * nz + cell[2])
         rows = field4.index_select(0, flat2)
         kick = tuple(rows[:, ax] for ax in range(3))
@@ -500,12 +511,19 @@ def make_deferred_step_fn(cfg: Config):
             increment = state.uray
             uray = state.uray
         # the OLD alive: a ray deposits on the step it dies
-        inc_masked = torch.where(state.alive, increment, 0.0)
-        out = torch.zeros_like(state.alive)
+        if out is None:
+            inc_masked = torch.where(state.alive, increment, 0.0)
+        else:
+            key = (increment.dtype, increment.device)
+            if key not in zero:
+                zero[key] = torch.zeros((), dtype=key[0], device=key[1])
+            inc_masked = torch.where(state.alive, increment, zero[key],
+                                     out=o[6])
+        left = torch.zeros_like(state.alive)
         for ax in range(3):
             t = cell[ax].to(frac[ax].dtype) + frac[ax]
-            out |= (t < -0.5) | (t > nvec[ax] - 0.5)
-        dead = (uray <= stop_frac * state.uray_init) | out
+            left |= (t < -0.5) | (t > nvec[ax] - 0.5)
+        dead = (uray <= stop_frac * state.uray_init) | left
         alive = state.alive & ~dead
         keep = state.alive          # a dead ray's whole state is frozen
         new_state = RayState(
@@ -553,6 +571,36 @@ def resolve_deposit_fn(cfg: Config, device) -> Callable:
     return deposit
 
 
+def chunk_lengths(cfg: Config) -> tuple[int, int, int]:
+    """``(chunk, n_chunks, last_chunk)``: the trace's chunk lengths."""
+    chunk = max(1, min(cfg.chunk_steps, cfg.nt))
+    n_chunks = -(-cfg.nt // chunk)          # ceil
+    return chunk, n_chunks, cfg.nt - (n_chunks - 1) * chunk
+
+
+def batched(cfg: Config) -> bool:
+    """Whether the traces advance whole windows of ``deposit_batch_steps``
+    steps between deposits: the batch is > 1 and divides both chunk lengths
+    (``models/raytracer.py:793-795``, ``models/cbet.py:491-494``); else they
+    deposit every step."""
+    chunk, _, last = chunk_lengths(cfg)
+    b = cfg.deposit_batch_steps
+    return b > 1 and not (chunk % b or last % b)
+
+
+def _window_rows(batch: int, n: int, dtype, device):
+    """The deposit inputs of a window of ``batch`` steps of ``n`` rays:
+    ``rows[j]`` are step j's seven (n,) output tensors for the step
+    function, ``flat`` the seven step-major (batch * n,) tensors over the
+    same memory for the deposit."""
+    bufs = ([torch.empty((batch, n), dtype=torch.int32, device=device)
+             for _ in range(3)]
+            + [torch.empty((batch, n), dtype=dtype, device=device)
+               for _ in range(4)])
+    rows = [tuple(b[j] for b in bufs) for j in range(batch)]
+    return rows, tuple(b.view(-1) for b in bufs)
+
+
 def make_trace_fn(cfg: Config, deposit_fn: Callable | None = None,
                   compact: bool = False):
     """Build the full-trace function
@@ -564,7 +612,14 @@ def make_trace_fn(cfg: Config, deposit_fn: Callable | None = None,
     ray is alive (the CUDA ``break`` at chunk granularity; one device sync
     per chunk).  ``overflow`` is the 0-dim int32 count of deposits outside
     the grid (0 in any valid configuration); ``steps`` the number of steps
-    executed, i.e. of deposit calls.
+    executed.
+
+    Where :func:`batched`, the trace advances ``deposit_batch_steps`` steps,
+    each writing its deposit inputs into its row of one preallocated window
+    buffer (no copy), then deposits the step-major window in one call,
+    ``deposit_fn(edep, *rows, n_rays)``: ``steps / deposit_batch_steps``
+    deposit calls.  Else it deposits every step.  The ray count is fixed
+    inside a window: compaction happens at chunk boundaries only.
 
     ``compact`` drops dead tiles at chunk boundaries
     (``models/tileplan.py``; ``state0`` must be whole tiles): the same edep,
@@ -577,8 +632,8 @@ def make_trace_fn(cfg: Config, deposit_fn: Callable | None = None,
     ``cfg.deposit_backend`` and the device of ``state0``."""
     step = make_deferred_step_fn(cfg)
     shape3 = cfg.edep_shape
-    chunk = max(1, min(cfg.chunk_steps, cfg.nt))
-    n_chunks = -(-cfg.nt // chunk)          # ceil
+    chunk, n_chunks, _ = chunk_lengths(cfg)
+    batch = cfg.deposit_batch_steps if batched(cfg) else 1
     master_dtype = getattr(torch, cfg.edep_dtype)
 
     def trace(field4: torch.Tensor, state0: RayState, widths=None):
@@ -590,6 +645,7 @@ def make_trace_fn(cfg: Config, deposit_fn: Callable | None = None,
         comp = (TileCompactor(state0, rays_per_tile(cfg)) if compact
                 else None)
         state, steps = state0, 0
+        rows, flat = None, ()
         for ci in range(n_chunks):
             if not bool(state.alive.any()):
                 break
@@ -597,10 +653,20 @@ def make_trace_fn(cfg: Config, deposit_fn: Callable | None = None,
                 state, _ = comp.update(state, first=ci == 0)
             n_steps = min(chunk, cfg.nt - ci * chunk)
             edep = torch.zeros(shape3, dtype=compute_dtype, device=device)
-            for _ in range(n_steps):
-                state, (cell, frac, inc) = step(state, field4)
-                edep, of = dep(edep, *cell, *frac, inc)
-                oflow += of
+            if batch > 1:
+                if rows is None or rows[0][0].shape[0] != state.n:
+                    rows, flat = _window_rows(batch, state.n, compute_dtype,
+                                              device)
+                for _ in range(n_steps // batch):
+                    for out in rows:
+                        state, _ = step(state, field4, out)
+                    edep, of = dep(edep, *flat, state.n)
+                    oflow += of
+            else:
+                for _ in range(n_steps):
+                    state, (cell, frac, inc) = step(state, field4)
+                    edep, of = dep(edep, *cell, *frac, inc)
+                    oflow += of
             steps += n_steps
             master += edep.to(master_dtype)
         if comp is not None:

@@ -8,13 +8,15 @@ JAX package's XLA scatter backend (``models/raytracer.py::
 _scatter_corner_parts``).  The kernels are in ``csrc/deposit.cu``; its header
 says what bounds them on the card.
 
-``deposit(edep, cx, cy, cz, fx, fy, fz, inc) -> (edep, overflow)`` (K1) keeps
-the TPU kernel's signature without its grid padding: ``edep`` is the natural
-ghost-padded ``(nx+2, ny+2, nz+2)`` grid, updated IN PLACE and returned;
-per-row inputs are flat ``(n,)`` tensors (int32 cells, floats of the grid's
-dtype) in launch-tile order; ``overflow`` is a 0-dim int32 tensor counting
-live rows with a corner outside the grid (0 when cells are clamped to the
-grid, as the trace keeps them), which were not written.
+``deposit(edep, cx, cy, cz, fx, fy, fz, inc, n_rays=None) -> (edep,
+overflow)`` (K1) keeps the TPU kernel's signature without its grid padding:
+``edep`` is the natural ghost-padded ``(nx+2, ny+2, nz+2)`` grid, updated IN
+PLACE and returned; per-row inputs are flat ``(n,)`` tensors (int32 cells,
+floats of the grid's dtype) in launch-tile order, one step of ``n_rays`` rays
+(the default: all rows) or a step-major window of ``n / n_rays`` steps;
+``overflow`` is a 0-dim int32 tensor counting live rows with a corner outside
+the grid (0 when cells are clamped to the grid, as the trace keeps them),
+which were not written.
 
 ``deposit_grouped(grids, ..., inc, rays_per_group, n_rays=None)`` (K2) is
 the grouped form, the per-beam CBET intensity fields: ``grids`` is
@@ -22,11 +24,13 @@ the grouped form, the per-beam CBET intensity fields: ``grids`` is
 ``(i % n_rays) // rays_per_group`` (rows are one step of ``n_rays`` rays, or
 a step-major window of several).
 
-K2 deposits a step-major window ray-major, each block of 256 rays through a
-shared-memory tile box (``csrc/deposit_row.cuh``); ``BOX_DEFAULT`` asks for
-the kernel's own box capacity, 0 for the direct kernel (one thread per row).
-The wrappers always take the default; ``_launch_grouped`` also takes 0, to
-time the two designs side by side, and a ``tally`` of the box's use.
+K1 and K2 deposit a step-major window ray-major, each block of 256 rays
+through a shared-memory tile box (``csrc/deposit_row.cuh``); K1 on one step
+is the direct kernel (one thread per row, global atomics).  ``BOX_DEFAULT``
+asks for the kernel's own box capacity, 0 for the direct kernel.  The
+wrappers always take the default; ``_launch`` and ``_launch_grouped`` also
+take 0, to time the two designs side by side, and a ``tally`` of the box's
+use.
 
 Each wrapper launches its kernel for CUDA tensors (after checking device,
 dtype, shape and contiguity; it raises on anything else) and takes the plain
@@ -83,10 +87,23 @@ def _corner_parts(cx, cy, cz, fx, fy, fz, inc, shape):
     return torch.stack(idxs, dim=1), torch.stack(vals, dim=1), ok
 
 
-def deposit_reference(edep, cx, cy, cz, fx, fy, fz, inc):
+def _check_steps(n_rows, n_rays) -> int:
+    """``n_rays`` (default: all rows, one step); raises unless the rows are
+    whole steps of it."""
+    if n_rays is None:
+        n_rays = n_rows
+    if n_rows and (n_rays <= 0 or n_rows % n_rays):
+        raise ValueError(f"deposit: {n_rows} rows are not whole steps of "
+                         f"n_rays={n_rays}")
+    return n_rays
+
+
+def deposit_reference(edep, cx, cy, cz, fx, fy, fz, inc, n_rays=None):
     """The plain PyTorch version of the kernel: ``index_add_`` of the eight
     corner parts into the flat grid, on any device.  Same contract as
-    :func:`deposit`; deterministic on the CPU."""
+    :func:`deposit`; deterministic on the CPU, where a step-major window
+    equals one call per step bit for bit (``_corner_parts``' order)."""
+    _check_steps(cx.shape[0], n_rays)
     idx, val, ok = _corner_parts(cx, cy, cz, fx, fy, fz, inc, edep.shape)
     overflow = ((inc != 0) & ~ok).sum().to(torch.int32)
     # rows with a corner outside the grid are not written (their indices
@@ -177,15 +194,29 @@ def _raise_on(rc, lib, what):
                            f"{lib.cbet_error_string(rc).decode()} ({rc})")
 
 
-def deposit(edep, cx, cy, cz, fx, fy, fz, inc):
+def deposit(edep, cx, cy, cz, fx, fy, fz, inc, n_rays=None):
     """Deposit rows into ``edep`` (in place): the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors.  Returns ``(edep,
-    overflow)``."""
+    tensors, the plain version for CPU tensors.  ``n_rays`` is the number of
+    rays per step (default: all rows, one step); rows that are not whole
+    steps raise.  Returns ``(edep, overflow)``."""
     global LAUNCHES
     ints, flts = (cx, cy, cz), (fx, fy, fz, inc)
     if _on_cpu(edep, ints + flts, "deposit"):
-        return deposit_reference(edep, cx, cy, cz, fx, fy, fz, inc)
+        return deposit_reference(edep, cx, cy, cz, fx, fy, fz, inc, n_rays)
+    overflow = _launch(edep, cx, cy, cz, fx, fy, fz, inc, n_rays)
+    LAUNCHES += 1
+    return edep, overflow
+
+
+def _launch(edep, cx, cy, cz, fx, fy, fz, inc, n_rays=None,
+            box_nodes=BOX_DEFAULT, tally=None):
+    """Check the CUDA arguments and launch K1: one step through the direct
+    kernel, a window through the tile box of capacity ``box_nodes`` (0: the
+    direct kernel over all its rows); returns the overflow count.  ``tally``
+    as in :func:`_launch_grouped`."""
+    ints, flts = (cx, cy, cz), (fx, fy, fz, inc)
     _check_cuda_args(edep, ints, flts)
+    n_rays = _check_steps(cx.shape[0], n_rays)
     from ..utils import cuda_build
     lib = cuda_build.load()
     fn = (lib.cbet_deposit_f32 if edep.dtype == torch.float32
@@ -195,10 +226,12 @@ def deposit(edep, cx, cy, cz, fx, fy, fz, inc):
         stream = torch.cuda.current_stream(edep.device).cuda_stream
         rc = fn(edep.data_ptr(), cx.data_ptr(), cy.data_ptr(), cz.data_ptr(),
                 fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), inc.data_ptr(),
-                cx.shape[0], *edep.shape, overflow.data_ptr(), stream)
+                cx.shape[0], n_rays, *edep.shape, box_nodes,
+                overflow.data_ptr(),
+                None if tally is None else _tally_ptr(tally, edep.device),
+                stream)
     _raise_on(rc, lib, "deposit")
-    LAUNCHES += 1
-    return edep, overflow
+    return overflow
 
 
 def deposit_grouped(grids, cx, cy, cz, fx, fy, fz, inc, rays_per_group,

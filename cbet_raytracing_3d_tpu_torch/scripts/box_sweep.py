@@ -1,12 +1,16 @@
-"""The tile box's capacity against K2 and K4 "cell" on the main path's window.
+"""The tile box's capacity against K1, K2 and K4 "cell" on the main path's
+windows.
 
     python -m cbet_raytracing_3d_tpu_torch.scripts.box_sweep
 
 Builds the OMEGA CBET window that ``chip_smoke.py`` phase 8 times (the CBET
 slot layout, 150 ordinary steps in, a smooth seeded gain of both signs) and
 runs K2 (the window's ``contrib0 * gamma`` into 60 beam grids) and K4 "cell"
-at each capacity of ``CAPACITIES`` (0 is the direct kernel), forward then
-backward.  Prints, per capacity, each kernel's mean milliseconds per call
+on it, and K1 on the plain trace's window that phase 3 times (the traced
+slots, 150 steps in), at each capacity of ``CAPACITIES`` (0 is the direct
+kernel, one thread per row; 1 fits no block, so every block takes the window
+kernel's own direct path, ray-major), forward then backward.  Prints, per
+capacity, each kernel's mean milliseconds per call
 (CUDA events, 20 calls, both passes) and its blocks with rows and blocks that
 took the box.  The kernels' default capacity (``cbet_box_default_nodes``) was
 chosen from this sweep.  Exits non-zero without a CUDA device.
@@ -27,7 +31,7 @@ from ..ops import gain_deposit as gdep
 from ..utils import cuda_build
 from .bench_mma_shapes import card_line
 
-CAPACITIES = (0, 1024, 2048, 3072, 4096, 5120)
+CAPACITIES = (0, 1, 1024, 2048, 3072, 4096, 5120)
 SEED = 20261020           # chip_smoke.py's SEED + 4: phase 8's window gain
 
 
@@ -65,6 +69,24 @@ def window(cfg, ctx, device, warm_steps):
     return k4, k2
 
 
+def trace_window(cfg, ctx, device, warm_steps, dtype=torch.float32):
+    """The plain trace's window after ``warm_steps`` ordinary steps, as
+    ``raytracer.make_trace_fn`` builds it (the traced slots, each step
+    writing its row of the window buffer): K1's arguments after the grid,
+    the seven step-major row tensors and the ray count."""
+    state = rt.traced_state(ctx, device).map(
+        lambda a: a.to(dtype) if a.is_floating_point() else a)
+    field4 = ctx.field4.to(device, dtype)
+    step = rt.make_deferred_step_fn(cfg)
+    for _ in range(warm_steps):
+        state, _ = step(state, field4)
+    rows, flat = rt._window_rows(cfg.deposit_batch_steps, state.n, dtype,
+                                 device)
+    for out in rows:
+        state, _ = step(state, field4, out)
+    return (*flat, state.n)
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` calls, CUDA events, after
     one warm-up call."""
@@ -89,10 +111,14 @@ def main() -> int:
     print(f"device={torch.cuda.get_device_name(0)}; nvidia-smi: "
           f"{card_line()}; torch {torch.__version__}; default capacity "
           f"{cuda_build.load().cbet_box_default_nodes()} nodes", flush=True)
-    k4, k2 = window(cfg, rt.prepare(cfg), dev, 3 * cfg.nt // 8)
+    ctx = rt.prepare(cfg)
+    k4, k2 = window(cfg, ctx, dev, 3 * cfg.nt // 8)
+    k1 = trace_window(cfg, ctx, dev, 3 * cfg.nt // 8)
     edep = torch.zeros(cfg.edep_shape, device=dev)
     grids = torch.zeros((cfg.nbeams,) + cfg.edep_shape, device=dev)
     launches = {
+        "K1": lambda cap, t=None: dep._launch(edep, *k1, box_nodes=cap,
+                                              tally=t),
         "K2": lambda cap, t=None: dep._launch_grouped(
             grids, *k2, box_nodes=cap, tally=t),
         "K4 cell": lambda cap, t=None: gdep._launch(

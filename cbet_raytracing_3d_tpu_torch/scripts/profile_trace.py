@@ -1,5 +1,6 @@
 """Where a trace's time goes on the card: the OMEGA trace and one CBET
-trace, each uncompacted and compacted, timed and profiled.
+trace, each uncompacted and compacted, and the OMEGA trace with a deposit
+per step (``deposit_batch_steps=1``) beside its windows, timed and profiled.
 
     python -m cbet_raytracing_3d_tpu_torch.scripts.profile_trace
 
@@ -87,6 +88,11 @@ def main() -> int:
         fn = rt.make_trace_fn(cfg, compact=compact)
         cases[f"trace {'compacted' if compact else 'uncompacted'}"] = (
             lambda fn=fn: fn(ctx.field4, ctx.state0))
+        fn1 = rt.make_trace_fn(cfg.replace(deposit_batch_steps=1),
+                               compact=compact)
+        cases[f"trace {'compacted' if compact else 'uncompacted'}, a "
+              "deposit per step"] = (
+            lambda fn=fn1: fn(ctx.field4, ctx.state0))
         c = cfg.replace(cbet_gain_mode="kernel_cell", cbet_segmented=compact)
         solver = cbet._get_solver(c, ctx, dev, cbet.kernel_ops())
         gain = solver.make_zero_gain()

@@ -123,11 +123,11 @@ def load() -> ctypes.CDLL:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    f, d = ctypes.c_float, ctypes.c_double
+    d = ctypes.c_double
     signatures = {
-        # (edep, cx, cy, cz, fx, fy, fz, inc, n, nxp, nyp, nzp, overflow,
-        #  stream)
-        "cbet_deposit": [p] * 8 + [ll, i, i, i, p, p],
+        # (edep, cx, cy, cz, fx, fy, fz, inc, n, n_rays, nxp, nyp, nzp,
+        #  box_nodes, overflow, tally, stream)
+        "cbet_deposit": [p] * 8 + [ll, ll, i, i, i, i, p, p, p],
         # (grids, cx, cy, cz, fx, fy, fz, inc, n, n_rays, rays_per_group,
         #  nxp, nyp, nzp, box_nodes, overflow, tally, stream)
         "cbet_deposit_grouped": [p] * 8 + [ll, ll, ll, i, i, i, i, p, p, p],
@@ -142,9 +142,7 @@ def _declare(lib: ctypes.CDLL) -> None:
             fn = getattr(lib, stem + suffix)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int          # cudaError_t
-    # (pair_u, rhat_pre, intensity, out, bo, B, P, iaw2, stream)
-    lib.cbet_gain_f32.argtypes = [p, p, p, p, i, i, ll, f, p]
-    lib.cbet_gain_f32.restype = ctypes.c_int
+    _declare_gain(lib)
     # (a, b, out, m, k, n, reps, transpose_lhs, grid, stream)
     lib.cbet_mma_probe_bf16.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.cbet_mma_probe_bf16.restype = ctypes.c_int
@@ -152,3 +150,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cbet_box_default_nodes.restype = ctypes.c_int
     lib.cbet_error_string.argtypes = [ctypes.c_int]
     lib.cbet_error_string.restype = ctypes.c_char_p
+
+
+def _declare_gain(lib: ctypes.CDLL) -> None:
+    """The entries of ``csrc/gain.cu`` (also of a library built from that
+    source alone, ``scripts/gain_sweep.py``)."""
+    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+    # (pair_u, rhat_pre, intensity, out, bo, B, P, iaw2, stream)
+    lib.cbet_gain_f32.argtypes = [p, p, p, p, i, i, ll, f, p]
+    lib.cbet_gain_f32.restype = ctypes.c_int
+    # (pair_u, rhat_pre, intensity, out, B, P, iaw2, stream)
+    lib.cbet_gain_pairs_f32.argtypes = [p, p, p, p, i, ll, f, p]
+    lib.cbet_gain_pairs_f32.restype = ctypes.c_int
+    lib.cbet_gain_pairs_max_beams.argtypes = []
+    lib.cbet_gain_pairs_max_beams.restype = ctypes.c_int

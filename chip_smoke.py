@@ -11,25 +11,37 @@ Phases (one line each; any failure exits non-zero before the last line):
    power limit from ``nvidia-smi``.
 2. build: compiles the CUDA kernels from ``cbet_raytracing_3d_tpu_torch/
    csrc`` with nvcc (sm_90a) and prints the seconds.
-3. kernel vs plain: the deposit kernel against its plain PyTorch version on
-   the same rows, at the main path's row count on the OMEGA 102^3 grid
-   (coherent tiles, boundary exit rows, dead rows) in f32 and f64, and on an
-   nz = 130 grid (K5's case); times both in f32, beside the bound.
+3. kernel vs plain: the deposit kernel (K1) against its plain PyTorch
+   version on the same rows.  One step at the main path's row count on the
+   OMEGA 102^3 grid (synthetic coherent tiles, boundary exit rows, dead
+   rows) in f32 and f64, and on an nz = 130 grid (K5's case), timed in f32
+   beside the bound.  Then the main path's window (5 steps x 1,121,280 rows,
+   150 steps into the OMEGA trace): through the tile box against the plain
+   version and against five direct one-step launches, f32 and f64 (a f64
+   window takes the window kernel's direct path by default; the box's
+   largest per-node relative error in f64 is printed), and a chunk's five
+   windows into one f32 grid against their float64 sum; the box, the five
+   launches and the direct kernel timed in turns, beside the bound and the
+   blocks that took the box.
 4. config-1 golden: float64 trace on the card through the kernel against
-   ``tests/golden/config1_oracle.npz``.
+   ``tests/golden/config1_oracle.npz``; a launch per 5-step window.
 5. OMEGA main path: ``runner.run(Config())`` on the card (60 beams, 19,600
    rays each, 100^3 nodes, f32 rays, f64 master; the rays initialized on
    the card, ``prepare_device``) against the same run in float64 (the exact
    reference) and against ``artifacts/omega_golden.npz``; the kernel's
-   launch count must equal the steps executed.
-6. timing: median of 3 synchronized full traces with the kernel and with the
+   launch count must equal the windows traced (steps / 5).
+6. timing: median of 3 synchronized full traces with the kernel (windows),
+   with the kernel on every step (``deposit_batch_steps=1``) and with the
    plain version, in turns.
-7. determinism: rel-L2 between two kernel traces (float atomics reorder).
+7. determinism: rel-L2 between two kernel traces (float atomics reorder);
+   the windowed trace against the per-step one, f32 and f64.
 8. CBET kernels vs plain, at the main path's shapes, timed with CUDA events:
    the grouped intensity deposit (K2) into 60 beam grids on one synthetic
    step (boundary exits, dead rows, scattered tiles), f32 and f64, and its
    refusal of more rays than its groups hold; the gain reduction (K3) at
-   60 beams x 100^3 nodes and in its b_out form; the window-gain deposit
+   60 beams x 100^3 nodes: the pair kernel (each beam pair once) against
+   the plain version and bit for bit against the all-pairs kernel, both
+   timed in turns, and the b_out form on the all-pairs kernel; the window-gain deposit
    (K4 "cell") on an OMEGA window (5 steps, mid-trace, a smooth synthetic
    gain of both signs, rays dying mid-window) and K2 on that window's
    5 x 1,228,800 rows (its contributions contrib0 * gamma), f32 and f64.
@@ -41,11 +53,12 @@ Phases (one line each; any failure exits non-zero before the last line):
    iterations; f32 against f64; both against ``artifacts/cbet_golden.npz``;
    the lookup advances 5-step windows (``deposit_batch_steps``), so K1/K2
    launches equal the windows traced (K1 also the uncoupled trace's
-   steps), K3 launches the iterations.
+   windows), K3 launches the iterations, all through the pair kernel.
 10. OMEGA CBET, kernel_cell mode (the JAX bench's configuration): f32 and
    f64 against phase 9's solves; K4 launches equal the windows traced.
 11. timing: a 1-iteration warm-up per solver, then full kernel_cell solves
-   with the kernels and with the plain versions of K1-K4, in turns;
+   with the kernels, with K3's all-pairs kernel in place of the pair
+   kernel, and with the plain versions of K1-K4, in turns;
    median solve seconds and per-iteration gain/trace/update seconds.
 12. K4 "tri" and K4 gain-only (both modes) against their plain versions on
    phase 8's OMEGA window, f32 and f64: edep, gamma, uout, overflow;
@@ -70,7 +83,7 @@ Phases (one line each; any failure exits non-zero before the last line):
 15. the compacted OMEGA trace (the JAX CLI's default: ``runner.run(cfg,
    cache_dir=...)``) against ``runner.run(cfg)``: f64 <= 1e-12 rel-L2, f32
    within 2x phase 7's drift, ``trace_stats`` counts identical, energy
-   conserved, K1 launches = steps; the tile widths; both traces timed,
+   conserved, K1 launches = steps / 5; the tile widths; both traces timed,
    median of 3 in turns.
 16. the compacted CBET solve (the JAX bench's kernel_cell with
    ``cbet_segmented=True``, ``cbet_plan_headroom=0.5``; and lookup), f32,
@@ -91,6 +104,7 @@ their type), the ``nvidia-smi`` line, and the final ``{"ok": true,
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -248,6 +262,16 @@ def gain_case(rng, cfg, ctx, device):
     return (torch.as_tensor(pu, device=device),
             torch.as_tensor(rp, device=device),
             torch.as_tensor(inten, dtype=torch.float32, device=device))
+
+
+def gain_all_pairs(pair_u, rhat_pre, intensity):
+    """K3 through its all-pairs kernel whatever the couplings (what the
+    wrapper ran before the pair kernel): for solves timed beside the
+    wrapper's."""
+    from cbet_raytracing_3d_tpu_torch.ops import gain as gop
+    from cbet_raytracing_3d_tpu_torch.utils import cuda_build
+    gop._check_shapes(pair_u, rhat_pre, intensity)
+    return gop._launch(cuda_build.load(), pair_u, rhat_pre, intensity, False)
 
 
 # The card's published rates (H100 SXM at 700 W; NVIDIA's data sheet): HBM3
@@ -455,13 +479,18 @@ def main() -> int:
                 ms_p = cuda_ms(lambda: dep.deposit_reference(grid_k, *args),
                                20)
                 if shape == cfg.edep_shape:
-                    kern = {"max_abs_err": max_abs, "ms": ms,
-                            "plain_ms": ms_p, **kb, "library_ms": None}
+                    one_step = {"one_step_ms": ms, "one_step_plain_ms": ms_p,
+                                "one_step_bound_ms": kb["bound_ms"]}
                 line += (f"; kernel {ms:.4f} ms plain {ms_p:.4f} ms per "
                          f"call, bound {kb['bound_ms']:.4f} ms "
                          f"({kb['bound_by']})")
             say("3 kernel-vs-plain", line)
             del args, got, want
+
+    rows3, kern = deposit_window_vs_plain(cfg, ctx, dev)
+    kern.update(one_step)
+    for line in rows3:
+        say("3 kernel-vs-plain", line)
 
     # 4. config-1 golden, f64, through the kernel
     data = np.load(CONFIG1_GOLDEN)
@@ -473,11 +502,14 @@ def main() -> int:
     e1, _, of1, steps1 = rt.make_trace_fn(c1)(ctx1.field4.to(dev), s1.to(dev))
     e1 = e1.cpu().numpy()
     err1 = rel_l2(e1, data["edep"])
-    if not (int(of1) == 0 and err1 < 1e-9
-            and dep.LAUNCHES - before == steps1 > 0):
-        raise RuntimeError(f"config-1 golden failed: rel-L2 {err1}")
-    say("4 config1-golden", f"f64 rel-L2 {err1:.3e} (< 1e-9), "
-        f"{steps1} kernel launches")
+    batch = c1.deposit_batch_steps
+    launches1 = dep.LAUNCHES - before
+    if not (int(of1) == 0 and err1 < 1e-9 and rt.batched(c1)
+            and launches1 * batch == steps1 > 0):
+        raise RuntimeError(f"config-1 golden failed: rel-L2 {err1}, "
+                           f"{launches1} launches over {steps1} steps")
+    say("4 config1-golden", f"f64 rel-L2 {err1:.3e} (< 1e-9), {steps1} steps,"
+        f" {launches1} kernel launches (one per {batch}-step window)")
 
     # 5. the OMEGA main path, through the runner; then the same scene in
     # float64 (f64 rays, f64 kernel) as the exact reference for the f32 run
@@ -502,7 +534,8 @@ def main() -> int:
         "golden rel-L2 < 2e-4": err < 2e-4,
         "edep_total vs golden rtol 1e-4": tot < 1e-4,
         "edep_total = energy_absorbed (1e-5)": cons < 1e-5,
-        "launches == steps > 0": launches == st["steps_executed"] > 0,
+        "launches == steps / 5 > 0": (
+            rt.batched(cfg) and launches * batch == st["steps_executed"] > 0),
         "same rays as the f64 run": all(
             st[k] == exact.stats[k] for k in ("rays_launched",
                                               "rays_alive_at_end")),
@@ -517,7 +550,8 @@ def main() -> int:
         f"{st['edep_total']:.17g} (golden rel {tot:.3e}); "
         f"absorbed-vs-deposited {cons:.3e}; rays_launched "
         f"{st['rays_launched']} rays_alive_at_end {st['rays_alive_at_end']} "
-        f"steps {st['steps_executed']} launches {launches} overflow 0")
+        f"steps {st['steps_executed']} launches {launches} (one per {batch}-"
+        f"step window) overflow 0")
     say("5 omega-run", "phases " + " ".join(
         f"{k} {v:.6f} s" for k, v in res.timings.items()))
 
@@ -525,33 +559,62 @@ def main() -> int:
     state0 = pad_rays(rt.select_rays(ctx.state0, ctx.live_slots),
                       ctx.layout.rays_per_tile).to(dev)
     field4 = ctx.field4.to(dev)
+    per_step_cfg = cfg.replace(deposit_batch_steps=1)
     fns = {"kernel": rt.make_trace_fn(cfg, dep.deposit),
+           "kernel, a deposit per step": rt.make_trace_fn(per_step_cfg,
+                                                          dep.deposit),
            "plain": rt.make_trace_fn(cfg, dep.deposit_reference)}
-    times = {"kernel": [], "plain": []}
-    edeps = []
-    for which in ("kernel", "plain", "plain", "kernel", "kernel", "plain"):
+    times = {k: [] for k in fns}
+    edeps = {k: [] for k in fns}
+    order = list(fns)
+    for which in order + order[::-1] + order:
         torch.cuda.synchronize()
+        before = dep.LAUNCHES
         t = time.perf_counter()
-        e, _, of, _ = fns[which](field4, state0)
+        e, _, of, steps = fns[which](field4, state0)
         torch.cuda.synchronize()
         times[which].append(time.perf_counter() - t)
-        if int(of) != 0:
-            raise RuntimeError(f"{which} trace overflow {int(of)}")
-        if which == "kernel":
-            edeps.append(e.cpu().numpy())
+        # a launch per window, per step, or none (the plain version)
+        want = {"kernel": steps // batch, "plain": 0}.get(which, steps)
+        if int(of) != 0 or dep.LAUNCHES - before != want:
+            raise RuntimeError(f"{which} trace: overflow {int(of)}, "
+                               f"{dep.LAUNCHES - before} launches over "
+                               f"{steps} steps")
+        if which != "plain":
+            edeps[which].append(e.cpu().numpy())
     ray_steps = cfg.total_rays * cfg.nt
     med = {k: statistics.median(v) for k, v in times.items()}
-    for k in ("kernel", "plain"):
-        say("6 timing", f"{k}: trace median {med[k]:.6f} s of "
+    for k in fns:
+        say("6 timing", f"{k} ({steps} steps): trace median {med[k]:.6f} s of "
             f"{[round(x, 6) for x in times[k]]}, "
             f"{ray_steps / med[k]:.6e} nominal ray-steps/s; card {smi}")
 
-    # 7. determinism of the kernel trace
-    drift = rel_l2(edeps[1], edeps[0])
-    if not drift < 1e-6:
-        raise RuntimeError(f"kernel traces differ by rel-L2 {drift}")
+    # 7. determinism of the kernel trace; windows against a deposit per step
+    drift = rel_l2(edeps["kernel"][1], edeps["kernel"][0])
+    drift_1 = rel_l2(edeps["kernel, a deposit per step"][1],
+                     edeps["kernel, a deposit per step"][0])
+    d32 = rel_l2(edeps["kernel"][0], edeps["kernel, a deposit per step"][0])
+    c64 = cfg.replace(dtype="float64")
+    ctx64 = rt.prepare(c64)
+    state64 = rt.traced_state(ctx64, dev)
+    field64 = ctx64.field4.to(dev)
+    e64 = [rt.make_trace_fn(c)(field64, state64)[0].cpu().numpy()
+           for c in (c64, c64.replace(deposit_batch_steps=1),
+                     c64.replace(deposit_batch_steps=1))]
+    d64, drift64 = rel_l2(e64[0], e64[1]), rel_l2(e64[2], e64[1])
+    del state64, field64, ctx64
+    # f32: the two traces add the same values into f32 chunk grids in another
+    # grouping (a block's window is summed exactly in its box and added once;
+    # per step every corner is added on its own), so they differ by the
+    # chunk grids' rounding, above the drift of one grouping's atomics
+    if not (drift < 1e-6 and drift_1 < 1e-6 and d32 < 1e-5 and d64 < 1e-12):
+        raise RuntimeError(f"kernel traces differ: windows twice {drift}, a "
+                           f"deposit per step twice {drift_1}, windows vs a "
+                           f"deposit per step f32 {d32} f64 {d64}")
     say("7 determinism", f"rel-L2 between two kernel traces {drift:.3e} "
-        "(< 1e-6)")
+        f"(< 1e-6; with a deposit per step {drift_1:.3e}); windows vs a "
+        f"deposit per step: f32 {d32:.3e} (< 1e-5), f64 {d64:.3e} (< 1e-12; "
+        f"two f64 traces with a deposit per step {drift64:.3e})")
 
     # 8. CBET kernels vs plain, at the main path's shapes
     from cbet_raytracing_3d_tpu_torch.models import cbet
@@ -564,7 +627,8 @@ def main() -> int:
 
     # 9. the CBET main path, lookup mode, through the runner; then float64
     counters = (("K1", dep, "LAUNCHES"), ("K2", dep, "GROUPED_LAUNCHES"),
-                ("K3", gop, "LAUNCHES"), ("K4", gdep, "LAUNCHES"),
+                ("K3", gop, "LAUNCHES"), ("K3 pairs", gop, "PAIR_LAUNCHES"),
+                ("K4", gdep, "LAUNCHES"),
                 ("K4 tri", gdep, "TRI_LAUNCHES"),
                 ("K4 gain-only", gdep, "GAIN_ONLY_LAUNCHES"),
                 ("K6", mp, "LAUNCHES"))
@@ -646,11 +710,12 @@ def main() -> int:
         f"f32 vs f64 intensity rel-L2 < {bar_int:.3e}":
             rel_l2(c32.intensity, c64.intensity) < bar_int,
         "f32 history within 2% of f64": max(hist_rel) < 0.02,
-        "K3 launches == iterations": n9["K3"] == c32.iterations,
+        "K3 launches == iterations, all the pair kernel's":
+            n9["K3"] == n9["K3 pairs"] == c32.iterations,
         "batched lookup": cbet.batched(cfg) and steps9 % batch == 0,
         "K2 launches == CBET windows > 0": n9["K2"] == windows9 > 0,
-        "K1 launches == CBET windows + uncoupled steps": (
-            n9["K1"] == windows9 + look.stats["steps_executed"]),
+        "K1 launches == CBET windows + uncoupled windows": (
+            n9["K1"] == windows9 + look.stats["steps_executed"] // batch),
         "K4 not on the lookup path": (
             n9["K4"] == n9["K4 tri"] == n9["K4 gain-only"] == 0),
     })
@@ -691,9 +756,10 @@ def main() -> int:
             for key in ("rays_terminated", "rays_alive_at_end")),
         "K4 launches == windows > 0": n10["K4"] == windows > 0,
         "K2 launches == windows": n10["K2"] == windows,
-        "K3 launches == iterations": n10["K3"] == k32.iterations,
-        "K1 only in the uncoupled trace":
-            n10["K1"] == kc.stats["steps_executed"],
+        "K3 launches == iterations, all the pair kernel's":
+            n10["K3"] == n10["K3 pairs"] == k32.iterations,
+        "K1 only in the uncoupled trace, per window":
+            n10["K1"] * batch == kc.stats["steps_executed"],
         "no tri, no gain-only": n10["K4 tri"] == n10["K4 gain-only"] == 0,
     }
     if not all(checks.values()):
@@ -703,16 +769,30 @@ def main() -> int:
 
     # 11. timing: kernel_cell solves, kernels and plain versions in turns
     ctx_kc = rt.prepare(cfg_kc)
-    variants = {"kernel": cbet.kernel_ops(), "plain": cbet.plain_ops()}
+    variants = {"kernel": cbet.kernel_ops(),
+                "kernel, K3 all-pairs": dataclasses.replace(
+                    cbet.kernel_ops(), gain=gain_all_pairs),
+                "plain": cbet.plain_ops()}
     for ops in variants.values():      # warm-up: builds the solver + seed
         cbet.cbet_solve(cfg_kc.replace(cbet_max_iters=1), ctx_kc, dev,
                         ops=ops)
     solves = {k: [] for k in variants}
-    for which in ("kernel", "plain", "plain", "kernel", "kernel", "plain"):
+    order = list(variants)
+    zero_counts()
+    for which in order + order[::-1] + order:
         torch.cuda.synchronize()
         t = time.perf_counter()
         r = cbet.cbet_solve(cfg_kc, ctx_kc, dev, ops=variants[which])
         solves[which].append((time.perf_counter() - t, r))
+    n11 = read_counts()
+    # the two K3 kernels agree bit for bit, so their solves differ by the
+    # float atomics' drift alone
+    same = solves["kernel"][0][1], solves["kernel, K3 all-pairs"][0][1]
+    h11 = max(abs(a / b - 1) for a, b in zip(same[0].history,
+                                             same[1].history))
+    if not (n11["K3"] == n11["K3 pairs"] == 15 and h11 < 1e-4):
+        raise RuntimeError(f"timing solves: K3 launches {n11}, histories "
+                           f"{same[0].history} / {same[1].history}")
     for which, runs in solves.items():
         secs = [x[0] for x in runs]
         st = runs[int(np.argsort(secs)[1])][1].stats
@@ -802,10 +882,135 @@ def main() -> int:
     return 0
 
 
+def deposit_window_vs_plain(cfg, ctx, dev):
+    """Phase 3, the main path's window: K1 on the 5-step window that
+    ``raytracer.make_trace_fn`` builds 150 steps into the OMEGA trace
+    (``scripts.box_sweep.trace_window``), against its plain version and
+    against five direct one-step launches, f32 and f64; timed in turns.
+    Returns (report lines, {max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms, per_step_ms, direct_ms, box_share} of the f32 case)."""
+    import torch
+    from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
+    from cbet_raytracing_3d_tpu_torch.ops import deposit as dep
+    from cbet_raytracing_3d_tpu_torch.scripts.box_sweep import trace_window
+    from cbet_raytracing_3d_tpu_torch.utils import cuda_build
+
+    lines, kern = [], {}
+    default_nodes = cuda_build.load().cbet_box_default_nodes()
+    for dt in (torch.float32, torch.float64):
+        c = cfg.replace(dtype=str(dt)[6:])
+        cx = ctx if dt == torch.float32 else rt.prepare(c)
+        *flat, n = trace_window(c, cx, dev, 3 * c.nt // 8, dt)
+        batch = flat[0].shape[0] // n
+        steps = [tuple(a[j * n:(j + 1) * n] for a in flat)
+                 for j in range(batch)]
+
+        def zeros(dtype=dt):
+            return torch.zeros(c.edep_shape, dtype=dtype, device=dev)
+
+        def per_step(grid):
+            of = 0
+            for rows in steps:
+                of = of + dep._launch(grid, *rows)
+            return of
+        before = dep.LAUNCHES
+        got, of_k = dep.deposit(zeros(), *flat, n)
+        counted = dep.LAUNCHES - before
+        want, of_p = dep.deposit_reference(zeros(), *flat, n)
+        stepped = zeros()
+        of_s = per_step(stepped)
+        tally = torch.zeros(2, dtype=torch.int32, device=dev)
+        boxed = zeros()
+        dep._launch(boxed, *flat, n, box_nodes=default_nodes, tally=tally)
+        default = box_share(lambda t: dep._launch(zeros(), *flat, n, tally=t),
+                            dev)
+        torch.cuda.synchronize()
+        g64, w64, s64 = (a.double().cpu().numpy()
+                         for a in (got, want, stepped))
+        err, err_s = rel_l2(g64, w64), rel_l2(g64, s64)
+        max_abs = float(np.abs(g64 - w64).max())
+        tot = abs(g64.sum() - w64.sum()) / abs(w64.sum())
+        f32 = dt == torch.float32
+        tol = 1e-5 if f32 else 1e-12
+        live = int((flat[6] != 0).sum())
+        blocks = tuple(int(x) for x in tally.cpu())
+        ok = (err < tol and err_s < tol and tot < tol and counted == 1
+              and int(of_k) == int(of_p) == int(of_s) == 0
+              and np.isfinite(g64).all() and live > 0
+              and rel_l2(boxed.double().cpu(), w64) < tol
+              # the default: f32 through the box, f64 on the direct path
+              and default == (blocks if f32 else (blocks[0], 0))
+              and 0 < blocks[1] <= blocks[0])
+        if not ok:
+            raise RuntimeError(
+                f"K1 window vs plain failed ({dt}): rel-L2 {err} (vs five "
+                f"launches {err_s}), total rel {tot}, overflow {int(of_k)}/"
+                f"{int(of_p)}/{int(of_s)}, blocks {blocks}, default "
+                f"{default}, launches counted {counted}")
+        line = (f"K1 window {str(dt)[6:]} {batch} x {n} rows ({live} live) "
+                f"into {tuple(c.edep_shape)}: rel-L2 vs plain {err:.3e} vs "
+                f"five one-step launches {err_s:.3e} total-rel {tot:.3e} "
+                f"max-abs {max_abs:.6e} (< {tol:g}); overflow 0")
+        if f32:
+            # a chunk's five windows into one f32 grid, against the float64
+            # sum of the same rows: what each grouping of the adds loses
+            exact, _ = dep.deposit_reference(
+                zeros(torch.float64), *flat[:3],
+                *(a.double() for a in flat[3:]), n)
+            exact = (5 * exact).cpu().numpy()
+            grid_b, grid_s = zeros(), zeros()
+            for _ in range(5):
+                dep._launch(grid_b, *flat, n)
+                per_step(grid_s)
+            loss_b = rel_l2(grid_b.double().cpu(), exact)
+            loss_s = rel_l2(grid_s.double().cpu(), exact)
+            kb = bound(deposit_bytes(flat[6]) + 8 * touched(want),
+                       DEPOSIT_OPS * live, PEAK_F32)
+            grid = zeros()
+            ms = in_turns({"box": lambda: dep.deposit(grid, *flat, n),
+                           "steps": lambda: per_step(grid)}, 20)
+            ms_d = in_turns({"box": lambda: dep.deposit(grid, *flat, n),
+                             "direct": lambda: dep._launch(
+                                 grid, *flat, n, box_nodes=0)}, 20)
+            ms_p = cuda_ms(lambda: dep.deposit_reference(grid, *flat, n), 5)
+            ms_box = (ms["box"] + ms_d["box"]) / 2
+            kern = {"max_abs_err": max_abs, "ms": ms_box, "plain_ms": ms_p,
+                    **kb, "library_ms": None, "per_step_ms": ms["steps"],
+                    "direct_ms": ms_d["direct"],
+                    "box_share": blocks[1] / blocks[0]}
+            line += (f"; five windows into one f32 grid vs their float64 sum:"
+                     f" box {loss_b:.3e}, one-step launches {loss_s:.3e}; box"
+                     f" {ms['box']:.4f} / {ms_d['box']:.4f} ms, five one-step"
+                     f" launches {ms['steps']:.4f} ms, direct kernel over "
+                     f"the window {ms_d['direct']:.4f} ms (in turns), plain "
+                     f"{ms_p:.4f} ms per window; bound {kb['bound_ms']:.4f} "
+                     f"ms ({kb['bound_by']}); blocks in the box {blocks[1]} "
+                     f"of {blocks[0]}")
+            del exact, grid_b, grid_s, grid
+        else:
+            direct = zeros()
+            dep._launch(direct, *flat, n, box_nodes=0)
+            d64 = direct.double().cpu().numpy()
+            nz = w64 != 0
+            b64 = boxed.double().cpu().numpy()
+            node = float((np.abs(b64 - d64)[nz] / np.abs(w64[nz])).max())
+            line += (f"; by default on the window kernel's direct path (0 of "
+                     f"{default[0]} blocks in the box); through the box "
+                     f"({blocks[1]} of {blocks[0]} blocks): rel-L2 vs plain "
+                     f"{rel_l2(b64, w64):.3e}, largest per-node relative "
+                     f"difference from the direct kernel {node:.3e}")
+            del direct
+        lines.append(line)
+        del flat, steps, got, want, stepped, boxed
+    return lines, kern
+
+
 def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
     """Phase 8: K2, K3 and K4 against their plain versions on the card at
     the OMEGA CBET path's shapes: K2 on one synthetic step and on the main
-    path's window, K4 "cell" on that window; K2 and K4 timed with the tile
+    path's window, K3's pair kernel (also against its all-pairs kernel, bit
+    for bit, both timed in turns) and its b_out form, K4 "cell" on that
+    window; K2 and K4 timed with the tile
     box (the kernels' default) and on the direct path (capacity 0) in
     turns, with the share of blocks that took the box.  Returns (report
     lines, per-kernel {max_abs_err, ms, plain_ms, bound_ms, bound_by,
@@ -815,6 +1020,7 @@ def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
     from cbet_raytracing_3d_tpu_torch.ops import deposit as dep
     from cbet_raytracing_3d_tpu_torch.ops import gain as gop
     from cbet_raytracing_3d_tpu_torch.ops import gain_deposit as gdep
+    from cbet_raytracing_3d_tpu_torch.utils import cuda_build
 
     lines, kern = [], {}
 
@@ -875,33 +1081,77 @@ def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
         lines.append(line)
         del args, got, want
 
-    # K3: 60 beams x 100^3 nodes, and the b_out form (8 output rows)
+    # K3: 60 beams x 100^3 nodes through the pair kernel (the solver's
+    # couplings are antisymmetric), bit for bit the all-pairs kernel; and
+    # the b_out form (8 output rows) on the all-pairs kernel
     pu, rp, inten = gain_case(rng, cfg, ctx, dev)
+    lib = cuda_build.load()
     for bo in (cfg.nbeams, 8):
-        before = gop.LAUNCHES
-        got = gop.gain(pu[:bo].contiguous(), rp, inten)
-        want = gop.gain_reference(pu[:bo].contiguous(), rp, inten)
+        full = bo == cfg.nbeams
+        pu_b = pu[:bo].contiguous()
+        before = (gop.LAUNCHES, gop.PAIR_LAUNCHES)
+        got = gop.gain(pu_b, rp, inten)
+        counted = (gop.LAUNCHES - before[0], gop.PAIR_LAUNCHES - before[1])
+        want = gop.gain_reference(pu_b, rp, inten)
         err, mx, fin = compare(got, want)
-        if not (err < 1e-5 and fin and gop.LAUNCHES == before + 1
+        if not (err < 1e-5 and fin and counted == (1, int(full))
+                and gop.pairs_antisymmetric(pu_b) == full
                 and float(want.abs().max()) > 0):
-            raise RuntimeError(f"K3 vs plain failed (Bo={bo}): rel-L2 {err}")
-        line = (f"K3 gain Bo={bo} B={cfg.nbeams} P={inten.shape[1]}: rel-L2 "
-                f"{err:.3e} max-abs {mx:.6e} (< 1e-5; the whole difference "
-                "is nvcc's FMA contraction)")
-        if bo == cfg.nbeams:
-            B, P = inten.shape
-            # pair_u, rhat_pre and I read once, G written once; 14 float32
-            # operations per (b, b', p) (eta 5, the resonance 7 with the
-            # division as one, the product and sum 2)
-            kb = bound(4 * (pu.numel() + rp.numel() + 2 * B * P),
-                       14 * B * B * P, PEAK_F32)
-            pu_c = pu.contiguous()
-            ms = cuda_ms(lambda: gop.gain(pu_c, rp, inten), 10)
-            ms_p = cuda_ms(lambda: gop.gain_reference(pu_c, rp, inten), 3)
-            kern["K3"] = {"max_abs_err": mx, "ms": ms, "plain_ms": ms_p,
-                          **kb, "library_ms": None}
-            line += f"; kernel {ms:.4f} ms plain {ms_p:.4f} ms per call"
+            raise RuntimeError(f"K3 vs plain failed (Bo={bo}): rel-L2 {err}, "
+                               f"launches (all, pair kernel) {counted}")
+        B, P = inten.shape
+        line = (f"K3 gain Bo={bo} B={B} P={P}, the "
+                f"{'pair' if full else 'all-pairs'} kernel: rel-L2 {err:.3e} "
+                f"max-abs {mx:.6e} (< 1e-5; the whole difference is the "
+                "kernels' FMA contraction)")
+        # pair_u, rhat_pre and I read once, G written once
+        nbytes = 4 * (pu_b.numel() + rp.numel() + (B + bo) * P)
+        if full:
+            every = gop._launch(lib, pu, rp, inten, False)
+            same = bool(torch.equal(got, every))
+            plain_pairs = gop.gain_pairs_reference(pu, rp, inten)
+            err_pp = compare(got, plain_pairs)[0]
+            if not (same and err_pp < 1e-5):
+                raise RuntimeError(
+                    f"K3 pair kernel vs all-pairs kernel: "
+                    f"{int((got != every).sum())} values differ, max "
+                    f"{float((got - every).abs().max())}; vs its plain "
+                    f"version {err_pp}")
+            # per pair a < b and node: eta 5, the resonance 7 with the
+            # division as one, and a product and a sum for each of the two
+            # beams (4): 16 float32 operations; then G = sum * pre
+            kb = bound(nbytes, (16 * (B * (B - 1) // 2) + B) * P, PEAK_F32)
+            # every (b, b'): eta 5, the resonance 7, the product and sum 2
+            kb_all = bound(nbytes, 14 * B * B * P, PEAK_F32)
+            ms = in_turns({
+                "pairs": lambda: gop.gain(pu, rp, inten),
+                "all": lambda: gop._launch(lib, pu, rp, inten, False)}, 10)
+            ms_p = cuda_ms(lambda: gop.gain_reference(pu, rp, inten), 3)
+            ms_pp = cuda_ms(lambda: gop.gain_pairs_reference(pu, rp, inten),
+                            1)
+            kern["K3"] = {"max_abs_err": mx, "ms": ms["pairs"],
+                          "plain_ms": ms_pp, **kb, "library_ms": None,
+                          "all_pairs_ms": ms["all"],
+                          "all_pairs_bound_ms": kb_all["bound_ms"],
+                          "all_pairs_plain_ms": ms_p}
+            line += (f"; equal to the all-pairs kernel bit for bit (it takes "
+                     f"up to {lib.cbet_gain_pairs_max_beams()} beams); vs its "
+                     f"own plain version {err_pp:.3e}; pair kernel "
+                     f"{ms['pairs']:.4f} ms, all-pairs kernel "
+                     f"{ms['all']:.4f} ms (in turns), plain pairs "
+                     f"{ms_pp:.4f} ms, plain all-pairs {ms_p:.4f} ms per "
+                     f"call; bound {kb['bound_ms']:.4f} ms "
+                     f"({kb['bound_by']}; every (b, b'): "
+                     f"{kb_all['bound_ms']:.4f} ms)")
+            del every, plain_pairs
+        else:
+            kb = bound(nbytes, 14 * bo * B * P, PEAK_F32)
+            ms = cuda_ms(lambda: gop.gain(pu_b, rp, inten), 10)
+            kern["K3"]["b_out_ms"] = ms
+            line += (f"; {ms:.4f} ms per call, bound {kb['bound_ms']:.4f} ms"
+                     f" ({kb['bound_by']})")
         lines.append(line)
+        del got, want
     del pu, rp, inten
 
     # K4 "cell" and K2 on the main path's window: an OMEGA window 150 steps
@@ -1146,6 +1396,8 @@ def cbet_optins(cfg, dev, smi, zero_counts, read_counts, ref):
             na["K4 tri"] == windows(ra) == na["K2"] > 0,
         "(a) no K4 cell, no gain-only, no K1":
             na["K4"] == na["K4 gain-only"] == na["K1"] == 0,
+        "(a) K3 through the pair kernel":
+            na["K3"] == na["K3 pairs"] == ra.iterations,
     })
     lines.append(
         f"(a) kernel (tri): {ra.iterations} iterations, history {hist(ra)}; "
@@ -1368,7 +1620,8 @@ def compacted_trace(cfg, dev, drift, zero_counts, read_counts, smi):
             st[k] == plain.stats[k] and seg64.stats[k] == plain64.stats[k]
             for k in keys),
         "energy conserved (1e-5)": cons < 1e-5,
-        "K1 launches == steps > 0": n15["K1"] == st["steps_executed"] > 0,
+        "K1 launches == steps / 5 > 0":
+            n15["K1"] * cfg.deposit_batch_steps == st["steps_executed"] > 0,
         "nothing written to the cache dir": had_cache or not os.path.exists(
             cache),
     }
@@ -1427,7 +1680,7 @@ def compacted_cbet(cfg, dev, ref, drift, zero_counts, read_counts, smi):
         de, di = rel_l2(res.edep, want.edep), rel_l2(res.intensity,
                                                      want.intensity)
         kernel_ok = (n["K4"] == windows if mode == "kernel_cell" else
-                     n["K1"] == windows + r.stats["steps_executed"])
+                     n["K1"] == windows + r.stats["steps_executed"] // batch)
         checks.update({
             f"{mode}: 5 iterations, segmented": res.iterations == 5
             and res.converged and res.stats["segmented"]
@@ -1435,8 +1688,9 @@ def compacted_cbet(cfg, dev, ref, drift, zero_counts, read_counts, smi):
             f"{mode}: history within 1e-3": hrel < 1e-3,
             f"{mode}: edep, intensity within {bar:.1e}": de < bar
             and di < bar,
-            f"{mode}: K2 == windows > 0, K3 == iterations": n["K2"] == windows
-            > 0 and n["K3"] == res.iterations,
+            f"{mode}: K2 == windows > 0, K3 == iterations, the pair kernel":
+                n["K2"] == windows > 0
+                and n["K3"] == n["K3 pairs"] == res.iterations,
             f"{mode}: K4 (kernel_cell) or K1 (lookup) per window": kernel_ok,
         })
         if mode == "kernel_cell":

@@ -23,6 +23,7 @@ from cbet_raytracing_3d_tpu_torch.config import Config
 from cbet_raytracing_3d_tpu_torch.models import cbet
 from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
 from cbet_raytracing_3d_tpu_torch.models import tileplan as tp
+from cbet_raytracing_3d_tpu_torch.ops import deposit as dep_ops
 from cbet_raytracing_3d_tpu_torch.runner import run
 
 torch.set_num_threads(1)
@@ -66,6 +67,90 @@ def test_compacted_trace_equals_plain_bitwise(dtype):
         b < a for a, b in zip(widths, widths[1:]))
     # state0 is left as it was
     assert _states_equal(state0, rt.traced_state(ctx, "cpu"))
+
+
+def _counting(calls):
+    def deposit(*a):
+        calls.append(a[1].shape[0])
+        return dep_ops.deposit(*a)
+    return deposit
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_windowed_trace_equals_per_step_bitwise(dtype, compact):
+    """The plain trace deposits ``deposit_batch_steps`` windows where they
+    divide the chunks: a fifth of the deposit calls, each of whole steps of
+    the rays then traced, and on the CPU the per-step trace's grid and final
+    state bit for bit (the plain deposit adds a step-major window row by
+    row), compacted or not."""
+    cfg = Config(**SCENE, dtype=dtype)
+    assert rt.batched(cfg) and cfg.deposit_batch_steps == 5
+    per_step = cfg.replace(deposit_batch_steps=1)
+    assert not rt.batched(per_step)
+    ctx = rt.prepare(cfg)
+    state0 = rt.traced_state(ctx, "cpu")
+    calls_w, calls_1, widths = [], [], []
+    e_w, s_w, of_w, n_w = rt.make_trace_fn(
+        cfg, _counting(calls_w), compact=compact)(ctx.field4, state0, widths)
+    e_1, s_1, of_1, n_1 = rt.make_trace_fn(
+        per_step, _counting(calls_1), compact=compact)(ctx.field4, state0)
+    assert n_w == n_1 > 0 and int(of_w) == int(of_1) == 0
+    assert len(calls_1) == n_1 and len(calls_w) == n_w // 5
+    assert sum(calls_w) == sum(calls_1) and all(c % 5 == 0 for c in calls_w)
+    if compact:
+        assert len(set(calls_w)) >= 2      # the ray count shrinks by chunk
+        rpt = ctx.layout.rays_per_tile
+        assert set(calls_w) <= {5 * w * rpt for w in widths}
+    else:
+        assert set(calls_w) == {5 * state0.n}
+    assert torch.equal(e_w, e_1) and float(e_w.abs().max()) > 0
+    assert _states_equal(s_w, s_1)
+
+
+@pytest.mark.parametrize("chunk,batch,windowed", [
+    (25, 5, True),        # 160 steps: chunks of 25 and a last one of 10
+    (7, 5, False),        # 5 divides neither 7 nor the last chunk
+    (30, 5, True),        # chunks of 30 and a last one of 10
+    (30, 4, False),       # 4 does not divide 30
+    (16, 4, True), (25, 1, False)])
+def test_windowed_trace_falls_back_where_the_batch_does_not_divide(
+        chunk, batch, windowed):
+    """As the JAX trace (``models/raytracer.py:793-795``): windows only
+    where the batch divides the chunk length and the last chunk's, else a
+    deposit per step; the grid is the same either way."""
+    cfg = Config(**SCENE, dtype="float64", chunk_steps=chunk,
+                 deposit_batch_steps=batch)
+    assert rt.batched(cfg) == windowed
+    ctx = rt.prepare(cfg)
+    state0 = rt.traced_state(ctx, "cpu")
+    calls = []
+    e, _, _, steps = rt.make_trace_fn(cfg, _counting(calls))(ctx.field4,
+                                                            state0)
+    assert len(calls) == (steps // batch if windowed else steps)
+    want, _, _, steps_1 = rt.make_trace_fn(
+        cfg.replace(deposit_batch_steps=1))(ctx.field4, state0)
+    assert steps == steps_1 and torch.equal(e, want)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_windowed_trace_matches_jax_trace(dtype):
+    """The windowed trace against the JAX package's trace (its scatter
+    backend) on the same padded live tiles, at the per-step trace's
+    tolerances (tests/test_torch_trace.py)."""
+    jcfg = JConfig(**SCENE, dtype=dtype)
+    jctx = jrt.prepare(jcfg)
+    rpt = jctx.layout.rays_per_tile
+    js0 = jpad(jrt.select_rays(jctx.state0, jctx.live_slots), rpt)
+    want, jstate, _ = jax.jit(jrt.make_trace_fn(jcfg, rpt,
+                                                backend="scatter"))(
+        jctx.field4, js0)
+    cfg = Config(**SCENE, dtype=dtype)
+    assert rt.batched(cfg)
+    got, state = rt.trace(rt.prepare(cfg), "cpu")
+    tol = 1e-12 if dtype == "float64" else 1e-5
+    assert _rel_l2(got, np.asarray(want, np.float64)) < tol
+    assert np.array_equal(state.alive.numpy(), np.asarray(jstate.alive))
 
 
 def test_compacted_trace_matches_jax_segmented_trace():

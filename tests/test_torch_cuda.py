@@ -1,7 +1,8 @@
 """The port on the card: the CUDA kernels (the deposit K1, the grouped
-deposit K2, the gain reduction K3, the window-gain deposit K4 in its "cell",
-"tri" and gain-only forms, the tensor-core probe K6) against their plain
-PyTorch versions (K2 and K4 also through each path of their tile box),
+deposit K2, the gain reduction K3 in its all-pairs and pair forms, the
+window-gain deposit K4 in its "cell", "tri" and gain-only forms, the
+tensor-core probe K6) against their plain PyTorch versions (K1's window, K2
+and K4 also through each path of their tile box),
 traces on the card against the CPU trace and the config-1 golden, the
 on-card init against the host prepare, a compacted trace
 against the uncompacted one, and CBET solves (with the opt-ins) through the
@@ -93,6 +94,87 @@ def test_kernel_rejects_bad_arguments(cuda):
         dep.deposit(grid, *args[:6], args[6][::2])
     with pytest.raises(ValueError):
         dep.deposit(grid, *args[:6], args[6].cpu())
+
+
+K1_WINDOW_CASES = {
+    # case: (coherent, batch, dead rays, blocks in the default box)
+    "coherent window": (True, 5, 0, "all"),
+    "scattered window": (False, 5, 0, "some"),
+    "a block of dead rays": (True, 5, 256, "all"),
+    "10-step window": (True, 10, 0, "all"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K1_WINDOW_CASES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_kernel_window_paths(cuda, case, dtype, tol):
+    """K1 on a step-major window against the plain version, against one
+    direct launch per step and against the direct kernel over all its rows
+    (capacity 0); the default sends a float32 window through the tile box
+    and a float64 one down the window kernel's direct path; an explicit
+    capacity boxes either."""
+    coherent, batch, dead, expect = K1_WINDOW_CASES[case]
+    grid, n_rays = (20, 18, 16), 4 * 2560
+    cell, frac, inc = _k2_window(11, grid, n_rays, batch, coherent)
+    for j in range(batch):
+        inc[j * n_rays + 256:j * n_rays + 256 + dead] = 0.0
+    args = to_device(cell, frac, inc, dtype, cuda)
+    shape = tuple(g + 2 for g in grid)
+
+    def zeros():
+        return torch.zeros(shape, dtype=dtype, device=cuda)
+    before = dep.LAUNCHES
+    got, of = dep.deposit(zeros(), *args, n_rays)
+    assert dep.LAUNCHES == before + 1
+    want, of_p = dep.deposit_reference(zeros(), *args, n_rays)
+    per_step = zeros()
+    for j in range(batch):
+        dep._launch(per_step, *(a[j * n_rays:(j + 1) * n_rays] for a in args))
+    direct, boxed, default = zeros(), zeros(), zeros()
+    of_d = dep._launch(direct, *args, n_rays, box_nodes=0)
+    tally = torch.zeros(2, dtype=torch.int32, device=cuda)
+    dep._launch(boxed, *args, n_rays, box_nodes=3072, tally=tally)
+    tally_default = torch.zeros(2, dtype=torch.int32, device=cuda)
+    dep._launch(default, *args, n_rays, tally=tally_default)
+    assert dep.LAUNCHES == before + 1            # only the wrapper counts
+    assert int(of) == int(of_p) == int(of_d) == 0
+    for grid_k in (got, per_step, direct, boxed, default):
+        assert rel_l2(grid_k.cpu(), want.cpu()) < tol
+    blocks, in_box = (int(x) for x in tally.cpu())
+    assert blocks == n_rays // 256 - dead // 256
+    assert in_box == blocks if expect == "all" else 0 <= in_box < blocks
+    blocks_d, in_box_d = (int(x) for x in tally_default.cpu())
+    assert blocks_d == blocks
+    assert in_box_d == (in_box if dtype == torch.float32 else 0)
+    with pytest.raises(ValueError, match="whole steps"):
+        dep.deposit(zeros(), *args, n_rays - 1)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-12),
+                                       ("float32", 1e-5)])
+def test_windowed_trace_on_card(cuda, dtype, tol):
+    """The plain trace on the card deposits windows: K1 launches are a
+    fifth of the steps, and the grid is the per-step trace's and the CPU
+    trace's."""
+    cfg = Config(nbeams=2, rays_per_zone=1, nx=40, ny=40, nz=40, dtype=dtype,
+                 tiles_per_block=2)
+    assert rt.batched(cfg)
+    ctx = rt.prepare(cfg)
+    state0 = rt.traced_state(ctx, cuda)
+    field4 = ctx.field4.to(cuda)
+    grids = {}
+    for tag, c in (("window", cfg),
+                   ("per-step", cfg.replace(deposit_batch_steps=1))):
+        before = dep.LAUNCHES
+        e, _, of, steps = rt.make_trace_fn(c)(field4, state0)
+        launches = dep.LAUNCHES - before
+        assert int(of) == 0 and steps > 0
+        assert launches == (steps // 5 if tag == "window" else steps)
+        grids[tag] = e.cpu()
+    want, _ = rt.trace(ctx, "cpu")
+    assert rel_l2(grids["window"], grids["per-step"]) < tol
+    assert rel_l2(grids["window"], want) < tol
 
 
 @pytest.mark.parametrize("dtype,tol", [("float64", 1e-12),
@@ -242,6 +324,48 @@ def test_gain_kernel_matches_plain(cuda, cbet_ctx, bo):
         gop.gain(pu.transpose(1, 2).contiguous(), rp, inten)
     with pytest.raises(TypeError):
         gop.gain(pu.double(), rp, inten)
+
+
+@pytest.mark.parametrize("nbeams,nodes", [(4, 32 ** 3), (60, 20_000),
+                                          (2, 1000), (13, 777)])
+def test_gain_pair_kernel_equals_all_pairs_kernel(cuda, nbeams, nodes):
+    """The pair kernel (each beam pair once) against the all-pairs kernel
+    bit for bit, against both plain versions, and through the wrapper: the
+    solver's couplings take it, the b_out form and perturbed couplings take
+    the all-pairs kernel."""
+    from cbet_raytracing_3d_tpu_torch.beams import load_beam_norms
+    from cbet_raytracing_3d_tpu_torch.models import cbet
+    from cbet_raytracing_3d_tpu_torch.utils import cuda_build
+    rng = np.random.default_rng(8)
+    pu = cbet.pair_couplings(load_beam_norms(nbeams=60)[:nbeams],
+                             Config().machnum).astype(np.float32)
+    rhat = rng.standard_normal((3, nodes))
+    rhat /= np.linalg.norm(rhat, axis=0)
+    rp = np.concatenate([rhat, rng.uniform(0.5, 2.0, (1, nodes))])
+    pu, rp, inten = (torch.as_tensor(a, dtype=torch.float32, device=cuda)
+                     for a in (pu, rp, rng.uniform(0, 1e14, (nbeams, nodes))))
+    assert gop.pairs_antisymmetric(pu)
+    lib = cuda_build.load()
+    assert nbeams <= lib.cbet_gain_pairs_max_beams()
+    pairs = gop._launch(lib, pu, rp, inten, True)
+    every = gop._launch(lib, pu, rp, inten, False)
+    assert float(every.abs().max()) > 0
+    assert torch.equal(pairs, every)
+    want = gop.gain_reference(pu, rp, inten)
+    assert rel_l2(pairs.cpu(), want.cpu()) < 1e-5
+    assert rel_l2(gop.gain_pairs_reference(pu, rp, inten).cpu(),
+                  want.cpu()) < 1e-6
+    counts = (gop.LAUNCHES, gop.PAIR_LAUNCHES)
+    assert torch.equal(gop.gain(pu, rp, inten), pairs)
+    assert (gop.LAUNCHES, gop.PAIR_LAUNCHES) == (counts[0] + 1, counts[1] + 1)
+    if nbeams > 2:
+        bo = pu[:2].contiguous()
+        assert torch.equal(gop.gain(bo, rp, inten), every[:2])
+    bad = pu.clone()
+    bad[0, 1, 0] += 1e-3
+    got = gop.gain(bad, rp, inten)
+    assert gop.PAIR_LAUNCHES == counts[1] + 1    # neither took the pair kernel
+    assert rel_l2(got.cpu(), gop.gain_reference(bad, rp, inten).cpu()) < 1e-5
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),

@@ -170,6 +170,61 @@ def test_dead_rows_ignored_and_overflow_counted(rng):
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
 
 
+def _window(rng, batch=5, n=192):
+    """A step-major window of ``batch`` steps of ``n`` rays: coherent tiles
+    with boundary exit rows (a negative weight) and dead rows, float64
+    NumPy."""
+    steps = []
+    for _ in range(batch):
+        cell, frac, inc = _coherent_tiles(rng, n_tiles=n // 64)
+        bc, bf, bi = _boundary_rays(rng, n)
+        edge = rng.uniform(size=n) < 0.2
+        cell = [np.where(edge, b, c).astype(np.int32)
+                for c, b in zip(cell, bc)]
+        frac = [np.where(edge, b, f) for f, b in zip(frac, bf)]
+        inc = np.where(rng.uniform(size=n) < 0.3, 0.0, inc)
+        steps.append((cell, frac, inc))
+    cat = [np.concatenate([st[0][a] for st in steps]) for a in range(3)] \
+        + [np.concatenate([st[1][a] for st in steps]) for a in range(3)] \
+        + [np.concatenate([st[2] for st in steps])]
+    return cat
+
+
+@pytest.mark.parametrize("wrapper", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_window_equals_per_step_calls_bitwise(dtype, wrapper, rng):
+    """K1's plain version on a step-major window (``n_rays``) equals one
+    call per step bit for bit, boundary exit rows and dead rows included;
+    the wrapper on the CPU is that plain version."""
+    n, batch = 192, 5
+    rows = _window(rng, batch, n)
+    args = [torch.from_numpy(a) for a in rows[:3]] \
+        + [torch.as_tensor(a, dtype=dtype) for a in rows[3:]]
+    fn = dep.deposit if wrapper else dep.deposit_reference
+    win, of_w = fn(torch.zeros(SHAPE3, dtype=dtype), *args, n)
+    per = torch.zeros(SHAPE3, dtype=dtype)
+    for j in range(batch):
+        per, of = fn(per, *(a[j * n:(j + 1) * n] for a in args))
+        assert int(of) == 0
+    assert int(of_w) == 0 and float(win.min()) < 0 < float(win.max())
+    assert int((args[6] == 0).sum()) > 0
+    assert torch.equal(win, per)
+    # the default is one step of all the rows: the same sum order again
+    one, _ = fn(torch.zeros(SHAPE3, dtype=dtype), *args)
+    assert torch.equal(one, win)
+
+
+@pytest.mark.parametrize("n_rays", [7, 0, -192, 193])
+def test_window_of_ragged_steps_raises(n_rays, rng):
+    rows = _window(rng, 5, 192)
+    args = [torch.from_numpy(a) for a in rows]
+    for fn in (dep.deposit, dep.deposit_reference):
+        grid = torch.zeros(SHAPE3, dtype=torch.float64)
+        with pytest.raises(ValueError, match="whole steps"):
+            fn(grid, *args, n_rays)
+        assert float(grid.abs().max()) == 0.0     # nothing was written
+
+
 def test_wrapper_on_cpu_is_the_plain_version(rng):
     cell, frac, inc = _coherent_tiles(rng)
     args = ([torch.from_numpy(c) for c in cell]

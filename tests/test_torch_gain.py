@@ -125,6 +125,85 @@ def test_gain_b_out_matches_pallas_kernel(bo, inputs):
     assert torch.equal(got, full[:bo])     # same per-row arithmetic
 
 
+def _omega_inputs(P=512, seed=5):
+    """The OMEGA 60-beam couplings with random unit vectors and a positive
+    prefactor on ``P`` nodes."""
+    rng = np.random.default_rng(seed)
+    pu = cbet.pair_couplings(load_beam_norms(nbeams=60),
+                             jk.MACH).astype(np.float32)
+    rhat = rng.standard_normal((3, P))
+    rhat /= np.linalg.norm(rhat, axis=0)
+    rp = np.concatenate([rhat, rng.uniform(0.5, 2.0, (1, P))]
+                        ).astype(np.float32)
+    inten = rng.random((60, P), np.float32) * 1e14
+    return pu, rp, inten
+
+
+@pytest.mark.parametrize("nb", [2, 4, 60])
+def test_solver_couplings_are_antisymmetric(nb):
+    """The pair kernel's condition holds exactly for the solver's couplings
+    in float32: ``pair_u[b, a] == -pair_u[a, b]``, zero diagonal."""
+    pu = torch.from_numpy(cbet.pair_couplings(
+        load_beam_norms(nbeams=nb), jk.MACH).astype(np.float32))
+    assert gop.pairs_antisymmetric(pu)
+    assert float(pu.abs().max()) > 0
+    assert float(pu[torch.arange(nb), torch.arange(nb)].abs().max()) == 0.0
+
+
+def test_pair_form_refused_for_other_couplings(inputs):
+    """The b_out slice, perturbed couplings, a non-zero diagonal, a NaN and
+    another rank are not the pair form; the check runs once per tensor and
+    again after an in-place change."""
+    pu = _t(inputs[0])[0]
+    assert gop.pairs_antisymmetric(pu)
+    assert not gop.pairs_antisymmetric(pu[:2].contiguous())
+    bad = pu.clone()
+    bad[1, 2, 0] = torch.nextafter(bad[1, 2, 0], torch.tensor(9.0))
+    assert not gop.pairs_antisymmetric(bad)
+    diag = pu.clone()
+    diag[3, 3, 1] = 1e-30
+    assert not gop.pairs_antisymmetric(diag)
+    nan = pu.clone()
+    nan[0, 1, 2], nan[1, 0, 2] = float("nan"), float("nan")
+    assert not gop.pairs_antisymmetric(nan)
+    assert not gop.pairs_antisymmetric(pu[0])
+    with pytest.raises(ValueError, match="antisymmetric"):
+        gop.gain_pairs_reference(bad, *_t(*inputs[1:]))
+    cached = pu.clone()
+    assert gop._takes_pairs(cached) and gop._takes_pairs(cached)
+    cached[1, 2, 0] += 1.0                       # in place: checked again
+    assert not gop._takes_pairs(cached)
+    assert gop._takes_pairs(pu)
+
+
+@pytest.mark.parametrize("case", ["scene", "omega", "two-beam"])
+def test_gain_pairs_reference_equals_reference_bitwise(case, inputs):
+    """Each pair evaluated once, added in ascending partner order, is the
+    all-pairs plain version bit for bit (R is odd, the couplings exactly
+    antisymmetric)."""
+    if case == "scene":
+        pu, rp, inten = inputs
+    else:
+        pu, rp, inten = _omega_inputs()
+        if case == "two-beam":
+            pu = np.ascontiguousarray(pu[:2, :2])
+            inten = inten[:2]
+    args = _t(pu, rp, inten)
+    want = gop.gain_reference(*args)
+    got = gop.gain_pairs_reference(*args)
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, want)
+
+
+def test_gain_pairs_reference_matches_jax(inputs, jctx):
+    """Both plain versions against the JAX XLA gain at 1e-6."""
+    pu, rp, inten = inputs
+    want = np.asarray(jcbet.make_gain_fn(JConfig(**SMALL), jctx,
+                                         backend="xla")(jnp.asarray(inten)))
+    for fn in (gop.gain_pairs_reference, gop.gain_reference):
+        assert _rel_l2(fn(*_t(pu, rp, inten)).numpy(), want) < 1e-6
+
+
 def test_zero_intensity_gives_zero_gain(inputs):
     pu, rp, inten = inputs
     g = gop.gain(*_t(pu, rp, np.zeros_like(inten)))

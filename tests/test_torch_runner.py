@@ -63,9 +63,12 @@ def test_write_outputs(port_run, tmp_path):
     assert all(os.path.exists(p) for p in paths) and len(paths) == len(fmts)
     with np.load(tmp_path / "edep.npz") as z:
         assert np.array_equal(z["edep"], port_run.edep)
-        assert np.array_equal(
+        # each package averages with its native library or, where that
+        # failed to load, with NumPy; the two sum in another order
+        np.testing.assert_allclose(
             z["edepavg"],
-            joutput.edep_box_average(JConfig(**SMALL), port_run.edep))
+            joutput.edep_box_average(JConfig(**SMALL), port_run.edep),
+            rtol=1e-14)
         assert int(z["stat_rays_launched"]) == port_run.stats["rays_launched"]
     meta = json.load(open(tmp_path / "edep.json"))
     assert meta["stats"] == port_run.stats
