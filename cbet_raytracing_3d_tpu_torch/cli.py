@@ -7,6 +7,11 @@ Counterpart of the ``run`` and ``dump`` subcommands of
               fixed-point solve), outputs to ``--out-dir``; by default
               (``--cache-dir .cbet_cache``) both are compacted mid-trace,
               as the JAX CLI runs them; ``--cache-dir ''`` does not
+              ``--composed`` (implied by ``--checkpoint``, ``--resume``,
+              ``--cbet-checkpoint`` and ``--cbet-only``) runs the resumable
+              forms, ``runner.run_composed`` and, with ``--cbet``,
+              ``models.cbet_composed.cbet_solve_composed``; their
+              checkpoints are the port's own format, not the JAX package's
 * ``dump`` — reference-compatible -D PRINT text dump to stdout
               (Makefile:14-17 golden-test replacement)
 
@@ -22,6 +27,10 @@ Usage examples::
         --cbet-gain-mode kernel --cbet-light-iterations true
     python -m cbet_raytracing_3d_tpu_torch.cli run --cbet \\
         --cbet-accel anderson --cbet-gain-stride 5
+    python -m cbet_raytracing_3d_tpu_torch.cli run --composed --cbet \\
+        --checkpoint out/trace.ckpt.npz --cbet-checkpoint out/cbet.ckpt.npz
+    python -m cbet_raytracing_3d_tpu_torch.cli run --cbet --resume \\
+        --checkpoint out/trace.ckpt.npz --cbet-checkpoint out/cbet.ckpt.npz
     python -m cbet_raytracing_3d_tpu_torch.cli dump --nbeams 1 > edep.txt
 """
 
@@ -33,8 +42,11 @@ import json
 import sys
 import typing
 
+import torch
+
 from .config import Config
-from .runner import default_device, run, write_outputs
+from .runner import (RunResult, default_device, run, run_composed,
+                     write_outputs)
 from .utils.output import dump_print_format
 
 
@@ -89,6 +101,42 @@ def config_from_args(args: argparse.Namespace) -> Config:
     return Config(**kw)
 
 
+def _run_composed(cfg: Config, args: argparse.Namespace) -> RunResult:
+    """The composed flow of the JAX CLI (cli.py:177-220): the resumable
+    trace unless ``--cbet-only``, then the resumable CBET solve on the
+    trace's own prepared scene.  (The port donates no buffers, so that
+    reuse is sound here.)"""
+    from .models import raytracer as rt
+    from .models.cbet_composed import cbet_solve_composed
+    device = torch.device(args.device)
+    res = None
+    if not (args.cbet and args.cbet_only):
+        res = run_composed(
+            cfg, min_tiles=args.min_tiles, device=device,
+            cache_dir=args.cache_dir or None,
+            checkpoint_path=args.checkpoint,
+            resume=bool(args.resume and args.checkpoint),
+            verbose=not args.quiet)
+    if not args.cbet:
+        return res
+    if res is not None and res.ctx is not None:
+        ctx = res.ctx
+    else:
+        ctx = (rt.prepare_device(cfg, device=device)
+               if device.type == "cuda" else rt.prepare(cfg))
+    cres = cbet_solve_composed(
+        cfg, ctx, device=device, beam_groups=args.beam_groups,
+        cache_dir=args.cache_dir or None,
+        checkpoint_path=args.cbet_checkpoint,
+        resume=bool(args.resume and args.cbet_checkpoint),
+        verbose=not args.quiet)
+    if res is None:
+        # --cbet-only: the coupled grid doubles as the primary output
+        return RunResult(cfg=cfg, edep=cres.edep, stats=dict(cres.stats),
+                         timings={}, cbet=cres)
+    return dataclasses.replace(res, cbet=cres)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="cbet-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -107,6 +155,35 @@ def main(argv=None) -> int:
                             "dead tiles mid-trace; the port writes nothing "
                             "there")
 
+    p_run.add_argument("--composed", action="store_true",
+                       help="the resumable large-scale run "
+                            "(runner.run_composed: the compacted trace with "
+                            "chunk-boundary checkpoints); with --cbet the "
+                            "CBET stage is the resumable composed solve "
+                            "(models.cbet_composed)")
+    p_run.add_argument("--checkpoint", default=None, metavar="PATH",
+                       help="composed-run checkpoint file (saved at "
+                            "compaction boundaries; implies --composed)")
+    p_run.add_argument("--resume", action="store_true",
+                       help="resume a composed run from --checkpoint / "
+                            "--cbet-checkpoint")
+    p_run.add_argument("--min-tiles", type=int, default=0,
+                       help="accepted as in the JAX CLI and inert: there "
+                            "is no static plan whose segments it could "
+                            "bound")
+    p_run.add_argument("--cbet-checkpoint", default=None, metavar="PATH",
+                       help="composed CBET: iteration-boundary checkpoint "
+                            "file (the fixed-point intensity; resume with "
+                            "--resume)")
+    p_run.add_argument("--beam-groups", type=int, default=None,
+                       help="composed CBET: trace the beams in this many "
+                            "serial groups (device memory control; default "
+                            "sizes the full-resolution gain rows of a "
+                            "group under 1 GiB)")
+    p_run.add_argument("--cbet-only", action="store_true",
+                       help="composed --cbet: skip the plain composed trace "
+                            "and run only the CBET stage")
+
     p_dump = sub.add_parser("dump", help="-D PRINT compatible dump to stdout")
     _add_config_flags(p_dump)
 
@@ -119,8 +196,27 @@ def main(argv=None) -> int:
             parser.error(str(e))
 
     if args.cmd == "run":
-        res = run(cfg, with_cbet=args.cbet, device=args.device,
-                  verbose=not args.quiet, cache_dir=args.cache_dir or None)
+        # the JAX CLI's rules (cli.py:159-176)
+        if args.cbet_only and not args.cbet:
+            print("--cbet-only requires --cbet", file=sys.stderr)
+            return 2
+        if args.cbet_checkpoint and not args.cbet:
+            # without the guard the flag (and --resume with it) would be
+            # silently dropped: hours of unintended retracing at scale
+            print("--cbet-checkpoint requires --cbet", file=sys.stderr)
+            return 2
+        composed = (args.composed or args.checkpoint or args.resume
+                    or args.cbet_checkpoint or args.cbet_only)
+        if composed:
+            if args.resume and not (args.checkpoint or args.cbet_checkpoint):
+                print("--resume requires --checkpoint PATH (trace) and/or "
+                      "--cbet-checkpoint PATH (CBET stage)", file=sys.stderr)
+                return 2
+            res = _run_composed(cfg, args)
+        else:
+            res = run(cfg, with_cbet=args.cbet, device=args.device,
+                      verbose=not args.quiet,
+                      cache_dir=args.cache_dir or None)
         paths = write_outputs(res, args.out_dir,
                               tuple(args.formats.split(",")))
         if not args.quiet:

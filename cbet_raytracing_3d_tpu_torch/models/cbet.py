@@ -36,6 +36,11 @@ change drops below ``cbet_tol``.
   ``alive`` mask, exact under any gain, so there is no plan whose liveness
   a headroom could relax and no retry.
 
+* A trace can run a block of the beams (``n_beams`` of
+  :func:`make_cbet_trace_fn`): their rows of the beam-contiguous state,
+  their gain rows, their intensity grids -- the same code with fewer groups
+  (``models/cbet_composed.py`` traces the beams in serial groups).
+
 Not here (ROADMAP): the mesh solve (M11).
 """
 
@@ -341,10 +346,16 @@ def make_window_advance(cfg: Config):
 
 def make_cbet_trace_fn(cfg: Config, ctx: rt.TraceContext,
                        tiles_per_group: int | None = None,
-                       ops: CbetOps | None = None, light: bool = False):
+                       ops: CbetOps | None = None, light: bool = False,
+                       n_beams: int | None = None):
     """The gain-coupled trace (``models/cbet.py:364``, single device):
     ``trace(field4, gain (B, P), bid (N,), state0) -> (edep, inodes (B, Ph),
     state, overflow, steps)``.
+
+    ``n_beams`` (default: all ``cfg.nbeams``) traces a block of that many
+    beams: ``B`` below is then the block's size, ``gain`` holds the block's
+    rows, ``bid`` counts from the block's first beam, and ``inodes`` are
+    exact row blocks of the whole trace's; edep is the block's share.
 
     ``gain`` is full-resolution in the ray dtype; ``bid`` the per-slot beam
     ids (lookup mode); the slots are beam-contiguous, ``tiles_per_group``
@@ -375,7 +386,9 @@ def make_cbet_trace_fn(cfg: Config, ctx: rt.TraceContext,
     s = cfg.cbet_grid_downsample
     hx, hy, hz = cfg.cbet_grid_shape
     P = nx * ny * nz                  # gain lookups are full-resolution
-    nb = cfg.nbeams
+    nb = cfg.nbeams if n_beams is None else n_beams
+    if not 1 <= nb <= cfg.nbeams:
+        raise ValueError(f"n_beams must be in [1, {cfg.nbeams}], got {nb}")
     tpg = (tiles_per_group if tiles_per_group is not None
            else ctx.layout.tiles_per_beam)
     rpt = ctx.layout.rays_per_tile
@@ -583,10 +596,10 @@ def _get_solver(cfg: Config, ctx: rt.TraceContext, device,
     return solver
 
 
-def _build_solver(cfg: Config, ctx: rt.TraceContext, device,
-                  ops: CbetOps) -> _CbetSolver:
-    """``models/cbet.py:1199``, single device: the per-beam block-padded
-    live-tile state and its beam ids, uploaded once."""
+def solver_state(cfg: Config, ctx: rt.TraceContext, device):
+    """``(state0, bid, tiles_per_group)`` of a CBET trace on ``device``
+    (``models/cbet.py:1199``): the per-beam block-padded live-tile state,
+    its per-slot beam ids and its per-beam tile width."""
     rpt = ctx.layout.rays_per_tile
     slots = live_tile_slots(cfg, ctx)
     tpg = (len(slots) // rpt) // cfg.nbeams
@@ -596,8 +609,14 @@ def _build_solver(cfg: Config, ctx: rt.TraceContext, device,
     # per-slot beam ids (padding slots get 0 but are permanently dead)
     bid = np.maximum(ctx.beam_id[slots], 0).astype(np.int32)
     bid = np.pad(bid, (0, state0.n - bid.shape[0]))
-    state0 = state0.to(device)
-    bid_t = torch.from_numpy(bid).to(device)
+    return state0.to(device), torch.from_numpy(bid).to(device), tpg
+
+
+def _build_solver(cfg: Config, ctx: rt.TraceContext, device,
+                  ops: CbetOps) -> _CbetSolver:
+    """``models/cbet.py:1199``, single device: the per-beam block-padded
+    live-tile state and its beam ids, uploaded once."""
+    state0, bid_t, tpg = solver_state(cfg, ctx, device)
     field4 = ctx.field4.to(device)
 
     widths = []            # the last trace's tile widths (cbet_segmented)

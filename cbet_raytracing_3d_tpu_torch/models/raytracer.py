@@ -601,18 +601,136 @@ def _window_rows(batch: int, n: int, dtype, device):
     return rows, tuple(b.view(-1) for b in bufs)
 
 
+@dataclasses.dataclass
+class TraceCarry:
+    """What the chunk loop carries from one chunk to the next, and what a
+    checkpoint of a trace holds (all but the window buffers)."""
+
+    state: RayState
+    master: torch.Tensor            # the ``edep_dtype`` grid so far
+    oflow: torch.Tensor             # 0-dim int32
+    steps: int = 0                  # steps executed
+    chunk: int = 0                  # index of the next chunk
+    comp: TileCompactor | None = None
+    rows: Any = None                # the window's buffers, re-made when the
+    flat: tuple = ()                # ray count changes; never saved
+
+
+class ChunkedTrace:
+    """THE chunk loop of the plain trace, one chunk at a time over an
+    explicit :class:`TraceCarry`: :func:`make_trace_fn` runs it from chunk 0
+    to the end, the resumable runners (``runner.run_resumable``,
+    ``runner.run_composed``) from a checkpoint's chunk.
+
+    ``start(state0)`` makes the carry of a fresh trace, ``resume(...)`` the
+    carry of a saved one; ``advance(field4, carry)`` runs the next chunk
+    (compaction at its boundary, its windows or steps, the promotion of its
+    grid into the master) and returns False, doing nothing, when the trace
+    is over: ``nt`` steps done or no ray alive (one device sync per chunk);
+    ``finish(carry)`` returns ``(edep, final_state, overflow, steps)`` with
+    the state in ``state0``'s layout.
+
+    A carry between two chunks is always *before* the next boundary's
+    gather, so a checkpoint taken there resumes the same way whether or not
+    that boundary compacts."""
+
+    def __init__(self, cfg: Config, deposit_fn: Callable | None = None,
+                 compact: bool = False):
+        self.cfg = cfg
+        self.deposit_fn = deposit_fn
+        self.compact = compact
+        self.step = make_deferred_step_fn(cfg)
+        self.chunk, self.n_chunks, _ = chunk_lengths(cfg)
+        self.batch = cfg.deposit_batch_steps if batched(cfg) else 1
+        self.master_dtype = getattr(torch, cfg.edep_dtype)
+
+    def start(self, state0: RayState) -> TraceCarry:
+        device = state0.uray.device
+        return TraceCarry(
+            state=state0,
+            master=torch.zeros(self.cfg.edep_shape, dtype=self.master_dtype,
+                               device=device),
+            oflow=torch.zeros((), dtype=torch.int32, device=device),
+            comp=(TileCompactor(state0, rays_per_tile(self.cfg))
+                  if self.compact else None))
+
+    def resume(self, state0: RayState, state: RayState,
+               master: torch.Tensor, oflow: int, steps: int, chunk: int,
+               compactor: dict | None = None) -> TraceCarry:
+        """The carry of a trace over ``state0`` saved after ``chunk``
+        chunks; ``compactor`` is the saved ``TileCompactor.state_dict()``
+        of a compacted trace."""
+        if self.compact != (compactor is not None):
+            raise ValueError("a compacted trace resumes from a compactor's "
+                             "state, an uncompacted one without")
+        device = state0.uray.device
+        comp = (TileCompactor.from_state_dict(
+            state0, rays_per_tile(self.cfg), compactor)
+            if compactor is not None else None)
+        n = comp.tiles.shape[0] * comp.rpt if comp is not None else state0.n
+        if state.n != n or tuple(master.shape) != tuple(self.cfg.edep_shape):
+            raise ValueError(
+                f"the saved state has {state.n} slots and a master "
+                f"{tuple(master.shape)}; this trace expects {n} and "
+                f"{tuple(self.cfg.edep_shape)}")
+        return TraceCarry(
+            state=state, master=master.to(device, self.master_dtype),
+            oflow=torch.full((), int(oflow), dtype=torch.int32,
+                             device=device),
+            steps=int(steps), chunk=int(chunk), comp=comp)
+
+    def advance(self, field4: torch.Tensor, c: TraceCarry) -> bool:
+        cfg, batch = self.cfg, self.batch
+        if c.chunk >= self.n_chunks or not bool(c.state.alive.any()):
+            return False
+        state = c.state
+        device, compute_dtype = state.uray.device, state.uray.dtype
+        dep = self.deposit_fn or resolve_deposit_fn(cfg, device)
+        if c.comp is not None:
+            state, _ = c.comp.update(state, first=c.chunk == 0)
+        n_steps = min(self.chunk, cfg.nt - c.chunk * self.chunk)
+        edep = torch.zeros(cfg.edep_shape, dtype=compute_dtype, device=device)
+        if batch > 1:
+            if c.rows is None or c.rows[0][0].shape[0] != state.n:
+                c.rows, c.flat = _window_rows(batch, state.n, compute_dtype,
+                                              device)
+            for _ in range(n_steps // batch):
+                for out in c.rows:
+                    state, _ = self.step(state, field4, out)
+                edep, of = dep(edep, *c.flat, state.n)
+                c.oflow += of
+        else:
+            for _ in range(n_steps):
+                state, (cell, frac, inc) = self.step(state, field4)
+                edep, of = dep(edep, *cell, *frac, inc)
+                c.oflow += of
+        c.state = state
+        c.steps += n_steps
+        c.chunk += 1
+        c.master += edep.to(self.master_dtype)
+        return True
+
+    def finish(self, c: TraceCarry, widths=None):
+        state = c.state
+        if c.comp is not None:
+            state = c.comp.final(state)
+            if widths is not None:
+                widths.extend(c.comp.widths)
+        return c.master, state, c.oflow, c.steps
+
+
 def make_trace_fn(cfg: Config, deposit_fn: Callable | None = None,
                   compact: bool = False):
     """Build the full-trace function
     ``(field4, state0, widths=None) -> (edep, final_state, overflow, steps)``.
 
-    Runs ``nt`` steps in chunks of ``chunk_steps``; each chunk deposits into
-    a grid of the ray dtype and promotes it into an ``edep_dtype`` master
-    between chunks.  The trace stops at the first chunk boundary where no
-    ray is alive (the CUDA ``break`` at chunk granularity; one device sync
-    per chunk).  ``overflow`` is the 0-dim int32 count of deposits outside
-    the grid (0 in any valid configuration); ``steps`` the number of steps
-    executed.
+    Runs ``nt`` steps in chunks of ``chunk_steps`` (:class:`ChunkedTrace`);
+    each chunk deposits into a grid of the ray dtype and promotes it into an
+    ``edep_dtype`` master between chunks.  The trace stops at the first
+    chunk boundary where no ray is alive (the CUDA ``break`` at chunk
+    granularity; one device sync per chunk).  ``overflow`` is the 0-dim
+    int32 count of deposits outside the grid (0 in any valid
+    configuration); ``steps`` the number of steps executed.
 
     Where :func:`batched`, the trace advances ``deposit_batch_steps`` steps,
     each writing its deposit inputs into its row of one preallocated window
@@ -630,50 +748,13 @@ def make_trace_fn(cfg: Config, deposit_fn: Callable | None = None,
     ``deposit_fn`` overrides the config's deposit (used to time or compare
     the kernel against its plain version); by default it is resolved from
     ``cfg.deposit_backend`` and the device of ``state0``."""
-    step = make_deferred_step_fn(cfg)
-    shape3 = cfg.edep_shape
-    chunk, n_chunks, _ = chunk_lengths(cfg)
-    batch = cfg.deposit_batch_steps if batched(cfg) else 1
-    master_dtype = getattr(torch, cfg.edep_dtype)
+    chunks = ChunkedTrace(cfg, deposit_fn, compact)
 
     def trace(field4: torch.Tensor, state0: RayState, widths=None):
-        device = state0.uray.device
-        dep = deposit_fn or resolve_deposit_fn(cfg, device)
-        compute_dtype = state0.uray.dtype
-        master = torch.zeros(shape3, dtype=master_dtype, device=device)
-        oflow = torch.zeros((), dtype=torch.int32, device=device)
-        comp = (TileCompactor(state0, rays_per_tile(cfg)) if compact
-                else None)
-        state, steps = state0, 0
-        rows, flat = None, ()
-        for ci in range(n_chunks):
-            if not bool(state.alive.any()):
-                break
-            if comp is not None:
-                state, _ = comp.update(state, first=ci == 0)
-            n_steps = min(chunk, cfg.nt - ci * chunk)
-            edep = torch.zeros(shape3, dtype=compute_dtype, device=device)
-            if batch > 1:
-                if rows is None or rows[0][0].shape[0] != state.n:
-                    rows, flat = _window_rows(batch, state.n, compute_dtype,
-                                              device)
-                for _ in range(n_steps // batch):
-                    for out in rows:
-                        state, _ = step(state, field4, out)
-                    edep, of = dep(edep, *flat, state.n)
-                    oflow += of
-            else:
-                for _ in range(n_steps):
-                    state, (cell, frac, inc) = step(state, field4)
-                    edep, of = dep(edep, *cell, *frac, inc)
-                    oflow += of
-            steps += n_steps
-            master += edep.to(master_dtype)
-        if comp is not None:
-            state = comp.final(state)
-            if widths is not None:
-                widths.extend(comp.widths)
-        return master, state, oflow, steps
+        carry = chunks.start(state0)
+        while chunks.advance(field4, carry):
+            pass
+        return chunks.finish(carry, widths)
 
     return trace
 

@@ -91,6 +91,35 @@ class TileCompactor:
         self.full: RayState | None = None
         self.widths = [self.width]
 
+    def state_dict(self) -> dict:
+        """What a checkpoint keeps of a compactor: the ``tiles`` index, the
+        ``widths`` so far and the written-back ``full`` state (None before
+        the first compaction).  References, not copies."""
+        return {"tiles": self.tiles, "widths": list(self.widths),
+                "full": self.full}
+
+    @classmethod
+    def from_state_dict(cls, state0: RayState, rays_per_tile: int, sd: dict,
+                        n_groups: int | None = None,
+                        shrink: float = SHRINK) -> "TileCompactor":
+        """The compactor of a resumed trace over the same ``state0``: it
+        goes on with the saved tiles and writes back into the saved
+        ``full``."""
+        comp = cls(state0, rays_per_tile, n_groups, shrink)
+        n_tiles = comp.tiles.shape[0]
+        tiles = sd["tiles"].to(comp.tiles.device, comp.tiles.dtype)
+        if tiles.numel() and not 0 <= int(tiles.min()) <= int(tiles.max()) \
+                < n_tiles:
+            raise ValueError("the saved tile index does not fit a state of "
+                             f"{n_tiles} tiles")
+        if sd["full"] is not None and sd["full"].n != state0.n:
+            raise ValueError(f"the saved full state has {sd['full'].n} "
+                             f"slots, state0 has {state0.n}")
+        comp.tiles = tiles
+        comp.widths = [int(w) for w in sd["widths"]]
+        comp.full = sd["full"]
+        return comp
+
     @property
     def width(self) -> int:
         """Tiles now traced (per group in grouped mode)."""

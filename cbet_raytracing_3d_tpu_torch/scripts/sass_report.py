@@ -8,7 +8,9 @@ Compiles every ``*.cu`` of ``DIR`` (default: the package's ``csrc/``) with
 the package's flags plus ``-Xptxas -v`` into objects under ``_build/``, all
 at once, and prints for each kernel whose demangled name contains ``TEXT``
 (default: all) its registers, spills and shared memory, the number of SASS
-instructions (``cuobjdump -sass``) and the most frequent opcodes.  With
+instructions (``cuobjdump -sass``), the most frequent opcodes and, where a
+kernel has any, its tensor-core and TMA instructions (``HGMMA`` is wgmma,
+``HMMA`` mma.sync, ``UTMALDG`` a TMA load, ``SYNCS`` an mbarrier).  With
 ``--dump`` each kernel's SASS is written there as one text file.  Run it on
 two directories (say, an older revision unpacked with ``git archive``) to
 compare two builds of one kernel.  Needs nvcc and cuobjdump, no card.
@@ -99,6 +101,11 @@ def main(argv=None) -> int:
                         r"^/\*[0-9a-f]{4}\*/\s*", "", l)).split()[0]
                     .rstrip(";") for l in sass)
                 top = ", ".join(f"{o} {c}" for o, c in ops.most_common(12))
+                units = {u: sum(c for o, c in ops.items() if o.startswith(u))
+                         for u in ("HGMMA", "HMMA", "UTMALDG", "SYNCS")}
+                if any(units.values()):
+                    top += "; " + ", ".join(f"{u} {c}"
+                                            for u, c in units.items())
                 # without the argument list (template arguments may hold
                 # parentheses of their own)
                 short = (plain[:plain.rindex(">(") + 1] if ">(" in plain

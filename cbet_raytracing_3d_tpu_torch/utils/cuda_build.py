@@ -143,9 +143,14 @@ def _declare(lib: ctypes.CDLL) -> None:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int          # cudaError_t
     _declare_gain(lib)
-    # (a, b, out, m, k, n, reps, transpose_lhs, grid, stream)
-    lib.cbet_mma_probe_bf16.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    # (a, b, out, m, k, n, reps, transpose_lhs, run, resident, grid, stream)
+    lib.cbet_mma_probe_bf16.argtypes = [p, p, p] + [i] * 8 + [p]
     lib.cbet_mma_probe_bf16.restype = ctypes.c_int
+    # (a, b, out, m, k, n, reps, transpose_lhs, grid, stream)
+    lib.cbet_mma_probe_wmma_bf16.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.cbet_mma_probe_wmma_bf16.restype = ctypes.c_int
+    lib.cbet_mma_probe_ring_slices.argtypes = []
+    lib.cbet_mma_probe_ring_slices.restype = ctypes.c_int
     lib.cbet_box_default_nodes.argtypes = []
     lib.cbet_box_default_nodes.restype = ctypes.c_int
     lib.cbet_error_string.argtypes = [ctypes.c_int]

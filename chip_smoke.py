@@ -58,7 +58,7 @@ Phases (one line each; any failure exits non-zero before the last line):
    f64 against phase 9's solves; K4 launches equal the windows traced.
 11. timing: a 1-iteration warm-up per solver, then full kernel_cell solves
    with the kernels, with K3's all-pairs kernel in place of the pair
-   kernel, and with the plain versions of K1-K4, in turns;
+   kernel (three each), and once with the plain versions of K1-K4, in turns;
    median solve seconds and per-iteration gain/trace/update seconds.
 12. K4 "tri" and K4 gain-only (both modes) against their plain versions on
    phase 8's OMEGA window, f32 and f64: edep, gamma, uout, overflow;
@@ -70,7 +70,7 @@ Phases (one line each; any failure exits non-zero before the last line):
    below 1; (b) light iterations in kernel_cell and lookup: the full
    solve's iterations, history, edep and intensity within the card's
    atomic drift, gain-only launches equal the light traces' windows, and
-   light vs full kernel_cell solve seconds, median of 3, in turns;
+   light vs full kernel_cell solve seconds, two each, in turns;
    (c) ``cbet_accel="anderson"``: no more iterations than the plain solve,
    the same first history entry, edep within the tolerance truncation;
    (d) ``cbet_gain_stride=5`` in lookup: its deviation from the stride-1
@@ -91,10 +91,28 @@ Phases (one line each; any failure exits non-zero before the last line):
    of phases 9/10, edep and intensity within max(1e-6, 2x phase 13's drift),
    K2/K4 launches = windows; f64 kernel_cell <= 1e-10; seeded solves
    compacted and uncompacted, median of 3 in turns.
-17. K6, the tensor-core probe, against its plain version at the six shapes
-   of ``scripts/bench_mxu_shapes.py`` (rel-L2 <= 1e-5), timed beside
-   ``torch.matmul`` in bf16; ``bench_mma_shapes`` in this process (its
-   launches) and as a subprocess (rc 0).
+17. K6, the tensor-core probe (wgmma + TMA), against its plain version and
+   the earlier mma.sync kernel at the six shapes of
+   ``scripts/bench_mxu_shapes.py`` (rel-L2 <= 1e-5), timed in turns with
+   that kernel and beside ``torch.matmul`` in bf16; the drift and time per
+   chain length; ``bench_mma_shapes`` in this process (its launches) and
+   as a subprocess (rc 0).
+18. the resumable OMEGA trace: ``runner.run_composed`` uninterrupted against
+   phase 15's compacted run; stopped after a mid-width chunk and after a
+   chunk whose boundary compacts, each resumed from its checkpoint: stats,
+   widths and steps equal, edep within 2x phase 7's drift; K1 launches =
+   windows; another config's checkpoint refused; seconds and bytes of one
+   checkpoint write and read.
+19. the composed OMEGA CBET solve: ``cbet_solve_composed`` uninterrupted
+   against phase 9's lookup solve; stopped after two iterations and resumed
+   with ``cbet_max_iters`` raised; a resume on the converged checkpoint (no
+   launch, the accounting kept); four serial beam groups against one;
+   K2 launches = windows x groups, K3 = iterations; then ``cli run
+   --composed --cbet`` with both checkpoints as a subprocess (rc 0).
+
+Phases 15, 16, 18 and 19 print their peak device memory beside
+``runner.estimate_device_bytes``; 15, 18 and 19 fail when a peak exceeds the
+estimate (``runner.check_memory`` decides on it).
 
 Then one JSON line describing the kernels (each with its bound on this card:
 the larger of its bytes over 3.35 TB/s and its operations over the peak of
@@ -631,7 +649,8 @@ def main() -> int:
                 ("K4", gdep, "LAUNCHES"),
                 ("K4 tri", gdep, "TRI_LAUNCHES"),
                 ("K4 gain-only", gdep, "GAIN_ONLY_LAUNCHES"),
-                ("K6", mp, "LAUNCHES"))
+                ("K6", mp, "LAUNCHES"),
+                ("K6 mma.sync", mp, "WMMA_LAUNCHES"))
 
     def zero_counts():
         for _, mod, attr in counters:
@@ -779,7 +798,8 @@ def main() -> int:
     solves = {k: [] for k in variants}
     order = list(variants)
     zero_counts()
-    for which in order + order[::-1] + order:
+    # the plain solve (8 s) once: its repeats taught nothing new
+    for which in order + order[-2::-1] + order[:-1]:
         torch.cuda.synchronize()
         t = time.perf_counter()
         r = cbet.cbet_solve(cfg_kc, ctx_kc, dev, ops=variants[which])
@@ -795,7 +815,7 @@ def main() -> int:
                            f"{same[0].history} / {same[1].history}")
     for which, runs in solves.items():
         secs = [x[0] for x in runs]
-        st = runs[int(np.argsort(secs)[1])][1].stats
+        st = runs[int(np.argsort(secs)[len(secs) // 2])][1].stats
         if not all(x[1].iterations == 5 for x in runs):
             raise RuntimeError(f"{which} timing solves did not take 5 "
                                "iterations")
@@ -825,15 +845,23 @@ def main() -> int:
         say("14 device-init", line)
 
     # 15. the JAX CLI's default trace: on-card init, compacted trace
-    rows15, n15 = compacted_trace(cfg, dev, drift, zero_counts, read_counts,
-                                  smi)
+    base = mem_mark()
+    rows15, n15, seg15 = compacted_trace(cfg, dev, drift, zero_counts,
+                                         read_counts, smi)
+    rows15.append(peak_line(cfg.replace(dtype="float64"), False, base)
+                  + " (f32 and f64 runs, the f64 estimate)")
     for line in rows15:
         say("15 compacted-trace", line)
 
     # 16. the JAX bench's CBET: compacted kernel_cell (and lookup)
+    base = mem_mark()
     rows16, n16 = compacted_cbet(cfg, dev, {
         "kernel_cell": k32, "lookup": c32, "kernel_cell_f64": k64},
         n13["drift"], zero_counts, read_counts, smi)
+    rows16.append(peak_line(cfg.replace(cbet_gain_mode="kernel_cell"), True,
+                            base, hold=False)
+                  + " (f32 and f64 solves with three cached solvers, beside "
+                  "the estimate of one f32 solve)")
     for line in rows16:
         say("16 compacted-cbet", line)
 
@@ -841,6 +869,15 @@ def main() -> int:
     rows17, kern17, n17 = mma_probe_phase(dev, zero_counts, read_counts, smi)
     for line in rows17:
         say("17 mma-probe", line)
+
+    # 18. the resumable trace; 19. the composed CBET solve
+    rows18, full18 = resumable_trace(cfg, dev, drift, seg15, zero_counts,
+                                     read_counts, smi)
+    for line in rows18:
+        say("18 resumable-trace", line)
+    for line in composed_cbet(cfg, dev, full18.ctx, c32, n13["drift"],
+                              zero_counts, read_counts, smi):
+        say("19 composed-cbet", line)
 
     src = f"{PKG}/csrc"
     kernels = [
@@ -1407,14 +1444,14 @@ def cbet_optins(cfg, dev, smi, zero_counts, read_counts, ref):
         f"edep_total {ra.edep.sum():.17g}; seeded solve {sa:.6f} s; "
         f"launches {na}")
 
-    # (b) light iterations: kernel_cell (median of 3 against full, in
+    # (b) light iterations: kernel_cell (two solves each against full, in
     # turns), then lookup
     c_kc = cfg.replace(cbet_gain_mode="kernel_cell")
     for light in (True, False):
         cbet.cbet_solve(c_kc.replace(cbet_max_iters=1,
                                      cbet_light_iterations=light), ctx, dev)
     runs = {"full": [], "light": []}
-    for which in ("full", "light", "light", "full", "full", "light"):
+    for which in ("full", "light", "light", "full"):
         runs[which].append(solve(c_kc.replace(
             cbet_light_iterations=which == "light"), warm=False))
     full, light = runs["full"][-1][0], runs["light"][-1][0]
@@ -1649,7 +1686,39 @@ def compacted_trace(cfg, dev, drift, zero_counts, read_counts, smi):
     lines.append("traces, median of 3 in turns: " + "; ".join(
         f"{k} {statistics.median(v):.6f} s of {[round(x, 6) for x in v]}"
         for k, v in times.items()) + f"; card {smi}")
-    return lines, n15["K1"]
+    return lines, n15["K1"], seg
+
+
+def mem_mark() -> int:
+    """Start a peak-memory reading: frees the allocator's cache, resets the
+    peak and returns the bytes still allocated (earlier phases' cached
+    solvers and results)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_line(cfg, with_cbet: bool, base: int, beam_groups: int = 1,
+              hold: bool = True) -> str:
+    """The peak device memory since :func:`mem_mark` above what was
+    allocated then, beside the estimate that ``runner.check_memory`` decides
+    on; ``hold`` fails the phase when the peak exceeds the estimate."""
+    import torch
+    from cbet_raytracing_3d_tpu_torch.runner import estimate_device_bytes
+    peak = torch.cuda.max_memory_allocated() - base
+    # the CBET phases run cbet_solve_composed on a prepared scene
+    est = estimate_device_bytes(cfg, with_cbet, beam_groups,
+                                trace=not with_cbet)
+    line = (f"peak device memory {peak / 2**30:.3f} GiB above the "
+            f"{base / 2**30:.3f} GiB held at the phase's start "
+            f"(torch.cuda.max_memory_allocated), estimate_device_bytes "
+            f"{est / 2**30:.3f} GiB")
+    if hold and peak > est:
+        raise RuntimeError(f"the memory estimate is low: {line}")
+    return line
 
 
 def compacted_cbet(cfg, dev, ref, drift, zero_counts, read_counts, smi):
@@ -1745,10 +1814,12 @@ def compacted_cbet(cfg, dev, ref, drift, zero_counts, read_counts, smi):
 
 
 def mma_probe_phase(dev, zero_counts, read_counts, smi):
-    """Phase 17: K6 against its plain version at the six shapes, timed
-    beside ``torch.matmul`` in bf16; then the probe's entry point in this
-    process (its launches) and once as a subprocess.  Returns (lines, the
-    JSON fields of the first shape, launches)."""
+    """Phase 17: K6 (wgmma + TMA) against its plain version at the six
+    shapes, timed in turns with the earlier mma.sync kernel and beside
+    ``torch.matmul`` in bf16; the drift and the time per chain length; then
+    the probe's entry point in this process (its launches) and once as a
+    subprocess.  Returns (lines, the JSON fields of the first shape,
+    launches)."""
     import torch
     from cbet_raytracing_3d_tpu_torch.ops import mma_probe as mp
     from cbet_raytracing_3d_tpu_torch.scripts import bench_mma_shapes as bm
@@ -1759,12 +1830,27 @@ def mma_probe_phase(dev, zero_counts, read_counts, smi):
         a, b = bm.operands(m, k, n, tr, dev)
         got = mp.mma_probe(a, b, mp.REPS, tr, mp.GRID)
         want = mp.mma_probe_reference(a, b, mp.REPS, tr, mp.GRID)
+        old = mp._launch(a, b, mp.REPS, tr, mp.GRID, variant="wmma")
         torch.cuda.synchronize()
         err = rel_l2(got.double().cpu(), want.double().cpu())
+        err_old = rel_l2(got.double().cpu(), old.double().cpu())
         mx = float((got.double() - want.double()).abs().max())
-        if not (err <= 1e-5 and bool(torch.isfinite(got).all())):
-            raise RuntimeError(f"K6 vs plain failed at {label}: rel-L2 {err}")
-        ms = cuda_ms(lambda: mp.mma_probe(a, b, mp.REPS, tr, mp.GRID), 5)
+        if not (err <= 1e-5 and err_old <= 1e-5
+                and bool(torch.isfinite(got).all())):
+            raise RuntimeError(f"K6 vs plain failed at {label}: rel-L2 {err}"
+                               f" (vs the mma.sync kernel {err_old})")
+
+        def run_new():
+            return mp.mma_probe(a, b, mp.REPS, tr, mp.GRID)
+
+        def run_old():
+            return mp._launch(a, b, mp.REPS, tr, mp.GRID, variant="wmma")
+
+        # in turns: new, old, old, new
+        t_new, t_old = [cuda_ms(run_new, 5)], [cuda_ms(run_old, 5)]
+        t_old.append(cuda_ms(run_old, 5))
+        t_new.append(cuda_ms(run_new, 5))
+        ms, ms_old = min(t_new), min(t_old)
         ms_p = cuda_ms(lambda: mp.mma_probe_reference(a, b, mp.REPS, tr), 5)
         a_op = a.t() if tr else a
         # the library's time for the launch's products: bf16 products, each
@@ -1778,32 +1864,313 @@ def mma_probe_phase(dev, zero_counts, read_counts, smi):
         kb = bound(nbytes, ops, mp.PEAK_BF16)
         rate = ops / (ms / 1e3)
         lines.append(
-            f"{label}: rel-L2 {err:.3e} (<= 1e-5); {ms:.4f} ms per launch of "
-            f"{products} products = {1e3 * ms / products:.4f} us per product, "
+            f"{label}: rel-L2 {err:.3e} (<= 1e-5; vs the mma.sync kernel "
+            f"{err_old:.3e}); {ms:.4f} ms per launch of "
+            f"{products} products (turns {t_new[0]:.4f} / {t_new[1]:.4f}) = "
+            f"{1e3 * ms / products:.4f} us per product, "
             f"{rate / 1e12:.1f} TFLOP/s = {100 * rate / mp.PEAK_BF16:.1f} % "
-            f"of 989; plain {ms_p:.4f} ms (one product, summed); "
+            f"of 989; mma.sync kernel {ms_old:.4f} ms (turns "
+            f"{t_old[0]:.4f} / {t_old[1]:.4f}); plain {ms_p:.4f} ms (one "
+            f"product, summed); "
             f"torch.matmul {1e3 * lib / products:.4f} us per product queued "
             f"({1e3 * lib_host / products:.4f} us as launched) = {lib:.4f} ms "
             f"for the launch's products; bound {kb['bound_ms']:.4f}"
             f" ms ({kb['bound_by']}); card {smi}")
         if kern is None:
             kern = {"max_abs_err": mx, "ms": ms, "plain_ms": ms_p, **kb,
-                    "library_ms": lib}
+                    "library_ms": lib, "wmma_ms": ms_old}
+            # the drift and the time per chain length at the longest k
+            parts = []
+            for slices, resident in ((1, True), (2, True), (4, True),
+                                     (6, True), (4, False), (None, False)):
+                out = mp._launch(a, b, mp.REPS, tr, mp.GRID,
+                                 chain_slices=slices, resident=resident)
+                torch.cuda.synchronize()
+                e = rel_l2(out.double().cpu(), want.double().cpu())
+                t = cuda_ms(lambda: mp._launch(
+                    a, b, mp.REPS, tr, mp.GRID, chain_slices=slices,
+                    resident=resident), 5)
+                depth = k if slices is None else 64 * slices
+                parts.append(f"{depth}-deep "
+                             f"{'resident' if resident else 'streamed'} "
+                             f"{e:.2e}, {t:.4f} ms")
+            lines.append(f"chain lengths at {label} (rel-L2 vs plain, ms per "
+                         "launch): " + "; ".join(parts))
+    # the public wrapper takes the wgmma kernel and no other
+    zero_counts()
+    mp.mma_probe(a, b, mp.REPS, tr, mp.GRID)
+    n_pub = read_counts()
+    if (n_pub["K6"], n_pub["K6 mma.sync"]) != (1, 0):
+        raise RuntimeError(f"mma_probe() launched {n_pub['K6']} wgmma and "
+                           f"{n_pub['K6 mma.sync']} mma.sync kernels")
     zero_counts()
     if bm.main() != 0:
         raise RuntimeError("bench_mma_shapes failed in process")
-    n17 = read_counts()["K6"]
-    if n17 != 4 * len(mp.SHAPES):
-        raise RuntimeError(f"bench_mma_shapes launched K6 {n17} times")
+    n17, n17_old = read_counts()["K6"], read_counts()["K6 mma.sync"]
+    if not n17 == n17_old == 4 * len(mp.SHAPES):
+        raise RuntimeError(f"bench_mma_shapes launched K6 {n17} times and "
+                           f"the mma.sync kernel {n17_old} times")
     proc = subprocess.run(
         [sys.executable, "-m", f"{PKG}.scripts.bench_mma_shapes"],
         capture_output=True, text=True, timeout=300, cwd=REPO)
     if proc.returncode != 0:
         raise RuntimeError(f"bench_mma_shapes subprocess rc "
                            f"{proc.returncode}: {proc.stderr[-2000:]}")
-    lines.append(f"bench_mma_shapes: {n17} K6 launches in process; as a "
+    lines.append(f"bench_mma_shapes: {n17} K6 launches (all wgmma; the "
+                 f"mma.sync kernel {n17_old}) in process; as a "
                  f"subprocess rc 0, {len(proc.stdout.splitlines())} lines")
     return lines, kern, n17
+
+
+def resumable_trace(cfg, dev, drift, seg15, zero_counts, read_counts, smi):
+    """Phase 18: ``runner.run_composed`` at OMEGA, uninterrupted and
+    resumed.  Returns (lines, the uninterrupted result)."""
+    import shutil
+    import torch
+    from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
+    from cbet_raytracing_3d_tpu_torch.runner import run_composed
+    from cbet_raytracing_3d_tpu_torch.utils import checkpoint as ck
+
+    work = os.path.join(REPO, "out", "chip_smoke_ckpt")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    batch = cfg.deposit_batch_steps
+    base = mem_mark()
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    full = run_composed(cfg, device=dev, verbose=False)
+    t_full = time.perf_counter() - t
+    n18 = read_counts()
+    lines = [peak_line(cfg, False, base)]
+    st = full.stats
+    keys = [k for k in st if k != "edep_total"]
+    d15 = rel_l2(full.edep, seg15.edep)
+    checks = {
+        "K1 launches == windows > 0":
+            n18["K1"] * batch == st["steps_executed"] > 0,
+        f"vs phase 15's compacted run <= 2 x drift ({2 * drift:.2e})":
+            d15 <= 2 * drift,
+        "widths, steps and counts of phase 15": all(
+            st[k] == seg15.stats[k] for k in (
+                "tile_widths", "steps_executed", "rays_launched",
+                "rays_terminated", "rays_alive_at_end", "energy_absorbed")),
+    }
+    # the chunk loop by hand: which boundaries compact, and a carry to time
+    # one checkpoint with
+    chunks = rt.ChunkedTrace(cfg, compact=True)
+    state0 = rt.traced_state(full.ctx, dev)
+    carry = chunks.start(state0)
+    bounds, cost = [], None
+    fp = ck.run_fingerprint(cfg, dev, "composed")
+    while chunks.advance(full.ctx.field4, carry):
+        if carry.comp.keep(carry.state.alive, False) is not None:
+            bounds.append(carry.chunk)
+            if len(bounds) == 2:
+                path = os.path.join(work, "cost.npz")
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ck.save_composed_checkpoint(
+                    path, fp, carry.chunk, carry.steps, carry.master,
+                    carry.state, int(carry.oflow), carry.comp.state_dict())
+                t_w = time.perf_counter() - t
+                t = time.perf_counter()
+                ck.load_composed_checkpoint(path, fp, dev)
+                torch.cuda.synchronize()
+                cost = (t_w, time.perf_counter() - t, os.path.getsize(path),
+                        carry.state.n)
+    boundary = bounds[1]
+    mid = next(c for c in range(2, carry.chunk) if c not in bounds)
+    lines.append(
+        f"run_composed uninterrupted {t_full:.6f} s (phases "
+        + " ".join(f"{k} {v:.6f}" for k, v in full.timings.items())
+        + f"); tile widths {st['tile_widths']}, chunks {st['chunks']}, steps "
+        f"{st['steps_executed']}, K1 launches {n18['K1']}; vs phase 15 "
+        f"rel-L2 {d15:.3e}; boundaries that compact after chunks {bounds}")
+    t_w, t_r, size, n = cost
+    lines.append(f"one checkpoint after chunk {boundary} ({n} slots + the "
+                 f"written-back full state): write {t_w:.4f} s, read "
+                 f"{t_r:.4f} s, {size} bytes; card {smi}")
+    for where, stop in (("mid-width", mid), ("compaction boundary",
+                                             boundary)):
+        path = os.path.join(work, f"trace_{stop}.npz")
+        out = run_composed(cfg, device=dev, verbose=False,
+                           checkpoint_path=path, stop_after_chunks=stop)
+        saved = ck.load_composed_checkpoint(path, fp, dev)[0]
+        zero_counts()
+        res = run_composed(cfg, device=dev, verbose=False,
+                           checkpoint_path=path, resume=True)
+        n_res = read_counts()["K1"]
+        d = rel_l2(res.edep, full.edep)
+        same = [k for k in keys if res.stats[k] != st[k]]
+        checks.update({
+            f"{where}: stopped with a checkpoint of chunk {stop}":
+                out is None and saved == stop,
+            f"{where}: stats, widths, steps equal": not same,
+            f"{where}: edep <= 2 x drift": d <= 2 * drift,
+            f"{where}: the resumed part's K1 launches":
+                n_res * batch == st["steps_executed"]
+                - stop * rt.chunk_lengths(cfg)[0],
+        })
+        lines.append(f"stopped after chunk {stop} ({where}), resumed: edep "
+                     f"rel-L2 {d:.3e} (bar {2 * drift:.3e}), stats that "
+                     f"differ {same}, K1 launches of the resumed part "
+                     f"{n_res}")
+    try:
+        run_composed(cfg.replace(intensity=2 * cfg.intensity), device=dev,
+                     verbose=False, checkpoint_path=path, resume=True)
+        checks["another config's checkpoint refused"] = False
+    except ValueError as e:
+        checks["another config's checkpoint refused"] = "fingerprint" in str(e)
+    shutil.rmtree(work, ignore_errors=True)
+    if not all(checks.values()):
+        raise RuntimeError("resumable trace failed: "
+                           f"{[k for k, v in checks.items() if not v]}; "
+                           + " | ".join(lines))
+    return lines, full
+
+
+def composed_cbet(cfg, dev, ctx, ref, drift, zero_counts, read_counts, smi):
+    """Phase 19: ``cbet_solve_composed`` at OMEGA against phase 9's lookup
+    solve ``ref``; resumed; grouped; through the CLI.  Returns lines."""
+    import shutil
+    import torch
+    from cbet_raytracing_3d_tpu_torch.models.cbet_composed import (
+        ACCOUNTING_KEYS, cbet_solve_composed)
+
+    work = os.path.join(REPO, "out", "chip_smoke_ckpt")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    batch = cfg.deposit_batch_steps
+    bar = max(1e-6, 2 * drift)
+    lines, checks = [], {}
+
+    def solve(c=cfg, **kw):
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = cbet_solve_composed(c, ctx, device=dev, verbose=False, **kw)
+        return r, time.perf_counter() - t, read_counts()
+
+    def hrel(a, b):
+        return max(abs(x / y - 1) for x, y in zip(a.history, b.history))
+
+    def launches_ok(r, n, gains):
+        """K1 and K2 once per window of this call's traces (summed over the
+        groups), K3 once per iteration this call ran, no K4."""
+        windows = sum(r.stats["trace_steps"]) // batch
+        return (n["K1"] == n["K2"] == windows > 0
+                and n["K3"] == n["K3 pairs"] == gains and n["K4"] == 0)
+
+    p1 = os.path.join(work, "cbet_full.npz")
+    base = mem_mark()
+    full, t_full, n = solve(beam_groups=1, checkpoint_path=p1)
+    lines.append(peak_line(cfg, True, base))
+    de, di = rel_l2(full.edep, ref.edep), rel_l2(full.intensity,
+                                                 ref.intensity)
+    checks.update({
+        "5 iterations, converged": full.iterations == 5 and full.converged,
+        "history within 1e-3 of phase 9's lookup solve":
+            hrel(full, ref) < 1e-3,
+        f"edep, intensity within {bar:.1e} of phase 9's": de < bar
+        and di < bar,
+        "K1 == K2 == windows, K3 == iterations (pair kernel), no K4":
+            launches_ok(full, n, 5)
+            and len(full.stats["trace_steps"]) == 6,
+    })
+    lines.append(
+        f"cbet_solve_composed, 1 group: {full.iterations} iterations, "
+        f"history {[f'{h:.5f}' for h in full.history]} (max rel "
+        f"{hrel(full, ref):.2e} from phase 9's lookup solve); edep {de:.3e} "
+        f"intensity {di:.3e} (bar {bar:.1e}); {t_full:.6f} s, iterations "
+        f"{full.stats['iter_seconds']} s; launches {n} over "
+        f"{sum(full.stats['trace_steps']) // batch} windows; checkpoint "
+        f"{os.path.getsize(p1)} bytes; card {smi}")
+
+    # interrupted after iteration 1 of a solve bounded at 3, resumed with
+    # the bound raised
+    p2 = os.path.join(work, "cbet_part.npz")
+    part, _, _ = solve(cfg.replace(cbet_max_iters=3), beam_groups=1,
+                       checkpoint_path=p2, stop_after_iterations=2)
+    res, _, n_res = solve(beam_groups=1, checkpoint_path=p2, resume=True)
+    d_res = max(rel_l2(res.edep, full.edep),
+                rel_l2(res.intensity, full.intensity))
+    checks.update({
+        "stopped after 2 iterations": part is None,
+        "resumed: 5 iterations, history within 1e-4":
+            res.iterations == 5 and res.converged and hrel(res, full) < 1e-4,
+        f"resumed: edep, intensity within {bar:.1e}": d_res < bar,
+        "resumed: 4 traces' launches": launches_ok(res, n_res, 4)
+        and len(res.stats["trace_steps"]) == 4,
+    })
+    lines.append(f"stopped after iteration 1 (cbet_max_iters 3), resumed "
+                 f"with the bound raised: {res.iterations} iterations, "
+                 f"history max rel {hrel(res, full):.2e}, edep/intensity "
+                 f"max rel-L2 {d_res:.3e}; launches {n_res}")
+
+    # a resume on the converged checkpoint: the result without a launch
+    again, t_again, n_again = solve(beam_groups=1, checkpoint_path=p1,
+                                    resume=True)
+    checks.update({
+        "converged checkpoint: no launch": not any(n_again.values()),
+        "converged checkpoint: the same result": (
+            again.iterations == 5 and again.history == full.history
+            and np.array_equal(again.edep, full.edep)
+            and np.array_equal(again.intensity, full.intensity)),
+        "converged checkpoint: accounting kept": all(
+            again.stats[k] == full.stats[k] for k in ACCOUNTING_KEYS),
+    })
+    lines.append(f"resume on the converged checkpoint: {t_again:.6f} s, "
+                 f"launches {n_again}, accounting "
+                 f"{ {k: again.stats[k] for k in ACCOUNTING_KEYS} }")
+
+    base = mem_mark()
+    g4, t_g4, n_g4 = solve(beam_groups=4)
+    lines.append("4 groups: " + peak_line(cfg, True, base, 4))
+    d_g4 = max(rel_l2(g4.edep, full.edep),
+               rel_l2(g4.intensity, full.intensity))
+    checks.update({
+        "4 groups: 5 iterations, history within 1e-4":
+            g4.iterations == 5 and hrel(g4, full) < 1e-4,
+        f"4 groups: edep, intensity within {bar:.1e}": d_g4 < bar,
+        "4 groups: K2 == windows x groups, K3 == iterations":
+            launches_ok(g4, n_g4, 5)
+            and g4.stats["chunks_per_iteration"]
+            == 4 * full.stats["chunks_per_iteration"],
+    })
+    lines.append(f"beam_groups=4 against 1: history max rel "
+                 f"{hrel(g4, full):.2e}, edep/intensity max rel-L2 "
+                 f"{d_g4:.3e}; {t_g4:.6f} s against {t_full:.6f} s; launches "
+                 f"{n_g4} over {sum(g4.stats['trace_steps']) // batch} "
+                 "windows")
+
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.cli", "run", "--composed", "--cbet",
+         "--checkpoint", os.path.join(work, "cli_trace.npz"),
+         "--cbet-checkpoint", os.path.join(work, "cli_cbet.npz"),
+         "--out-dir", os.path.join(work, "cli"), "--formats", "json",
+         "--quiet"],
+        capture_output=True, text=True, timeout=600, cwd=REPO)
+    t_cli = time.perf_counter() - t
+    ok = proc.returncode == 0
+    if ok:
+        with open(os.path.join(work, "cli", "edep.json")) as f:
+            payload = json.load(f)
+        ok = (payload["cbet"]["iterations"] == 5
+              and payload["cbet"]["stats"]["intensity_mode"]
+              == "grouped_composed"
+              and os.path.exists(os.path.join(work, "cli_trace.npz"))
+              and os.path.exists(os.path.join(work, "cli_cbet.npz")))
+    checks["cli run --composed --cbet with both checkpoints: rc 0"] = ok
+    lines.append(f"cli run --composed --cbet --checkpoint --cbet-checkpoint "
+                 f"as a subprocess: rc {proc.returncode}, {t_cli:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    if not all(checks.values()):
+        raise RuntimeError("composed CBET failed: "
+                           f"{[k for k, v in checks.items() if not v]}; "
+                           + " | ".join(lines) + proc.stderr[-2000:])
+    return lines
 
 
 if __name__ == "__main__":

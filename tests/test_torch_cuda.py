@@ -5,8 +5,9 @@ tensor-core probe K6) against their plain PyTorch versions (K1's window, K2
 and K4 also through each path of their tile box),
 traces on the card against the CPU trace and the config-1 golden, the
 on-card init against the host prepare, a compacted trace
-against the uncompacted one, and CBET solves (with the opt-ins) through the
-kernels against solves through the plain versions.  Marked ``cuda``; each
+against the uncompacted one, CBET solves (with the opt-ins) through the
+kernels against solves through the plain versions, and a resumed
+``run_composed`` and ``cbet_solve_composed``.  Marked ``cuda``; each
 test skips without a CUDA device.
 
 This file imports no JAX, so it also runs on a machine that has only the
@@ -612,24 +613,68 @@ def test_device_init_on_card_equals_host_prepare(cuda, dtype):
     assert np.array_equal(ctx_d.beam_id == -1, np.repeat(~valid, rpt))
 
 
-@pytest.mark.parametrize("shape", [0, 4])
-def test_mma_probe_kernel_matches_plain(cuda, shape):
-    """K6 against its plain version at two of the six shapes (the
-    transposed deposit shape and a lookup shape), with its launch count."""
-    from cbet_raytracing_3d_tpu_torch.ops import mma_probe as mp
+def _probe_operands(m, k, n, tr, device):
     from cbet_raytracing_3d_tpu_torch.scripts.bench_mma_shapes import operands
+    return operands(m, k, n, tr, device, seed=m + k + n)
+
+
+@pytest.mark.parametrize("shape", range(6))
+def test_mma_probe_kernel_matches_plain(cuda, shape):
+    """K6 (wgmma + TMA) against its plain version and against the earlier
+    mma.sync kernel at each of the six shapes, with its launch count."""
+    from cbet_raytracing_3d_tpu_torch.ops import mma_probe as mp
     _, m, k, n, tr = mp.SHAPES[shape]
-    a, b = operands(m, k, n, tr, cuda)
-    before = mp.LAUNCHES
+    a, b = _probe_operands(m, k, n, tr, cuda)
+    before = (mp.LAUNCHES, mp.WMMA_LAUNCHES)
     got = mp.mma_probe(a, b, mp.REPS, tr, 4)
-    assert mp.LAUNCHES == before + 1
+    # the public wrapper takes the wgmma kernel
+    assert (mp.LAUNCHES, mp.WMMA_LAUNCHES) == (before[0] + 1, before[1])
     want = mp.mma_probe_reference(a, b, mp.REPS, tr)
     assert rel_l2(got.cpu(), want.cpu()) < 1e-5
+    old = mp._launch(a, b, mp.REPS, tr, 4, variant="wmma")
+    assert (mp.LAUNCHES, mp.WMMA_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert rel_l2(got.cpu(), old.cpu()) < 1e-5
+
+
+@pytest.mark.parametrize("tr", [False, True])
+@pytest.mark.parametrize("m,k,n", [(16, 64, 128), (80, 64, 128),
+                                   (64, 16, 128), (64, 48, 128),
+                                   (64, 128, 16), (16, 16, 16),
+                                   (144, 208, 272)])
+def test_mma_probe_kernel_ragged_shapes(cuda, m, k, n, tr):
+    """Tiles, slices and columns that the tensor does not fill (TMA's zero
+    fill, the skipped k steps, the unstored rows), in both forms, through
+    every chain mode."""
+    from cbet_raytracing_3d_tpu_torch.ops import mma_probe as mp
+    a, b = _probe_operands(m, k, n, tr, cuda)
+    want = mp.mma_probe_reference(a, b, 3, tr).cpu()
+    got = mp.mma_probe(a, b, 3, tr, 2)
+    assert got.shape == (m, n) and rel_l2(got.cpu(), want) < 1e-5
+    old = mp._launch(a, b, 3, tr, 2, variant="wmma")
+    assert rel_l2(got.cpu(), old.cpu()) < 1e-5
+    for slices, resident in ((1, True), (2, False), (None, False)):
+        out = mp._launch(a, b, 3, tr, 2, chain_slices=slices,
+                         resident=resident)
+        assert rel_l2(out.cpu(), want) < 1e-5, (slices, resident)
+
+
+def test_mma_probe_kernel_rejects_bad_arguments(cuda):
+    from cbet_raytracing_3d_tpu_torch.ops import mma_probe as mp
+    a, b = _probe_operands(64, 64, 64, False, cuda)
     with pytest.raises(TypeError):
-        mp.mma_probe(a.float(), b, transpose_lhs=tr)
-    with pytest.raises(ValueError):
-        mp.mma_probe(a[:, :-1].contiguous() if not tr else a[:-1].contiguous(),
-                     b[:-1].contiguous() if tr else b, transpose_lhs=tr)
+        mp.mma_probe(a.float(), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        mp.mma_probe(a.t(), b)                      # (64, 64) but strided
+    with pytest.raises(ValueError, match="multiples of 16"):
+        mp.mma_probe(a[:, :-8].contiguous(), b[:-8].contiguous())
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+        mp.mma_probe(flat[1:].view(64, 64), b)
+    with pytest.raises(ValueError, match="resident"):
+        a2, b2 = _probe_operands(64, 1280, 64, False, cuda)
+        mp._launch(a2, b2, chain_slices=None, resident=True)
+    with pytest.raises(ValueError, match="grid"):
+        mp.mma_probe(a, b, grid=0)
 
 
 def test_compacted_trace_on_card_matches_plain(cuda):
@@ -676,3 +721,66 @@ def test_cbet_optin_solve_on_card_matches_plain(cuda, cbet_ctx, over):
     assert got.iterations == want.iterations
     assert rel_l2(got.edep, want.edep) < 1e-6
     assert rel_l2(got.intensity, want.intensity) < 1e-6
+
+
+def test_run_composed_resumes_on_card(cuda, tmp_path):
+    """``run_composed`` on the card, stopped mid-trace and resumed: the
+    state-derived stats, the widths and the steps equal the uninterrupted
+    run's, edep within the float64 atomics' drift; another config's
+    checkpoint is refused."""
+    from cbet_raytracing_3d_tpu_torch.runner import run_composed
+    cfg = Config(nbeams=2, rays_per_zone=1, nx=40, ny=40, nz=40,
+                 tiles_per_block=2, dtype="float64", chunk_steps=10)
+    full = run_composed(cfg, device=cuda, verbose=False)
+    assert len(full.stats["tile_widths"]) >= 3
+    before = dep.LAUNCHES
+    path = str(tmp_path / "trace.npz")
+    assert run_composed(cfg, device=cuda, verbose=False, checkpoint_path=path,
+                        stop_after_chunks=7) is None
+    res = run_composed(cfg, device=cuda, verbose=False, checkpoint_path=path,
+                       resume=True)
+    assert (dep.LAUNCHES - before) * cfg.deposit_batch_steps == \
+        full.stats["steps_executed"]
+    for key in full.stats:
+        if key != "edep_total":
+            assert res.stats[key] == full.stats[key], key
+    assert rel_l2(res.edep, full.edep) < 1e-12
+    with pytest.raises(ValueError, match="fingerprint"):
+        run_composed(cfg.replace(intensity=2e14), device=cuda, verbose=False,
+                     checkpoint_path=path, resume=True)
+    with pytest.raises(ValueError, match="fingerprint"):      # a CPU run
+        run_composed(cfg, device="cpu", verbose=False, checkpoint_path=path,
+                     resume=True)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_cbet_solve_composed_resumes_on_card(cuda, tmp_path, groups):
+    """``cbet_solve_composed`` on the card (float64) against the segmented
+    lookup ``cbet_solve``, stopped after an iteration and resumed, and
+    resumed again on the converged checkpoint without a launch."""
+    from cbet_raytracing_3d_tpu_torch.models import cbet
+    from cbet_raytracing_3d_tpu_torch.models.cbet_composed import \
+        cbet_solve_composed
+    cfg = Config(nbeams=4, rays_per_zone=1, nx=40, ny=40, nz=40,
+                 cbet_max_iters=8, cbet_tol=1e-3, dtype="float64",
+                 tiles_per_block=1, chunk_steps=8, deposit_batch_steps=4)
+    ctx = rt.prepare_device(cfg, device=cuda)
+    mono = cbet.cbet_solve(cfg.replace(cbet_segmented=True), ctx, cuda)
+    path = str(tmp_path / "cbet.npz")
+    assert cbet_solve_composed(cfg, ctx, device=cuda, beam_groups=groups,
+                               checkpoint_path=path, verbose=False,
+                               stop_after_iterations=2) is None
+    res = cbet_solve_composed(cfg, ctx, device=cuda, beam_groups=groups,
+                              checkpoint_path=path, resume=True,
+                              verbose=False)
+    assert res.converged and res.iterations == mono.iterations
+    np.testing.assert_allclose(res.history, mono.history, rtol=1e-6)
+    assert rel_l2(res.edep, mono.edep) < 1e-10
+    assert rel_l2(res.intensity, mono.intensity) < 1e-10
+    counts = (dep.LAUNCHES, dep.GROUPED_LAUNCHES, gop.LAUNCHES)
+    again = cbet_solve_composed(cfg, ctx, device=cuda, beam_groups=groups,
+                                checkpoint_path=path, resume=True,
+                                verbose=False)
+    assert counts == (dep.LAUNCHES, dep.GROUPED_LAUNCHES, gop.LAUNCHES)
+    assert np.array_equal(again.edep, res.edep)
+    assert again.stats["rays_terminated"] == res.stats["rays_terminated"]

@@ -10,7 +10,10 @@ from cbet_raytracing_3d_tpu_torch import cli
 from cbet_raytracing_3d_tpu_torch.config import Config
 from cbet_raytracing_3d_tpu_torch.models import cbet
 from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
-from cbet_raytracing_3d_tpu_torch.runner import run
+from cbet_raytracing_3d_tpu_torch.models.cbet_composed import \
+    cbet_solve_composed
+from cbet_raytracing_3d_tpu_torch.runner import (run, run_composed,
+                                                 run_resumable)
 
 torch.set_num_threads(1)
 
@@ -20,8 +23,8 @@ TINY_FLAGS = ["--nbeams", "2", "--rays-per-zone", "1", "--nx", "16",
               "--ny", "16", "--nz", "16", "--dtype", "float64"]
 
 
-def _cli(cmd, device, tmp_path):
-    argv = [cmd, *TINY_FLAGS]
+def _cli(cmd, device, tmp_path, *more):
+    argv = [cmd, *TINY_FLAGS, *more]
     if cmd == "run":
         argv += ["--out-dir", str(tmp_path), "--formats", "json", "--quiet"]
     if device is not None:
@@ -38,6 +41,14 @@ ENTRY_POINTS = {
     "raytracer.trace": lambda cfg, dev, tmp: rt.trace(rt.prepare(cfg), dev),
     "cli run": lambda cfg, dev, tmp: _cli("run", dev, tmp),
     "cli dump": lambda cfg, dev, tmp: _cli("dump", dev, tmp),
+    "run_resumable": lambda cfg, dev, tmp: run_resumable(
+        cfg, checkpoint_path=str(tmp / "c.npz"), device=dev, verbose=False),
+    "run_composed": lambda cfg, dev, tmp: run_composed(cfg, device=dev,
+                                                       verbose=False),
+    "cbet_solve_composed": lambda cfg, dev, tmp: cbet_solve_composed(
+        cfg, rt.prepare(cfg), device=dev, verbose=False),
+    "cli run --composed": lambda cfg, dev, tmp: _cli("run", dev, tmp,
+                                                     "--composed"),
 }
 
 
@@ -69,7 +80,14 @@ def test_entry_point_runs_on_cpu_when_asked(no_card, entry, tmp_path,
     """``device="cpu"`` (``--device cpu``) runs the same entry point on the
     CPU."""
     out = ENTRY_POINTS[entry](Config(**TINY), "cpu", tmp_path)
-    if entry == "runner.run":
+    if entry in ("run_resumable", "run_composed"):
+        assert out.edep.shape == Config(**TINY).edep_shape
+        assert out.stats["steps_executed"] > 0 and out.stats["chunks"] > 0
+        if entry == "run_composed":
+            assert out.stats["device"] == "cpu"
+    elif entry == "cbet_solve_composed":
+        assert out.iterations == 1 and out.stats["device"] == "cpu"
+    elif entry == "runner.run":
         assert out.edep.shape == Config(**TINY).edep_shape
         assert out.stats["steps_executed"] > 0
     elif entry == "cbet_solve":
@@ -82,7 +100,7 @@ def test_entry_point_runs_on_cpu_when_asked(no_card, entry, tmp_path,
         assert state.uray.device.type == "cpu"
     else:
         assert out == 0
-        if entry == "cli run":
+        if entry.startswith("cli run"):
             assert any(p.suffix == ".json" for p in tmp_path.iterdir())
         else:
             assert capsys.readouterr().out.strip()

@@ -76,3 +76,34 @@ def test_shapes_and_bound_follow_the_tpu_script():
     assert mp.flops(896, 1280, 128) == 2 * 896 * 1280 * 128 * 8 * 512
     assert mp.bound_seconds(896, 1280, 128) == pytest.approx(
         mp.flops(896, 1280, 128) / 989e12)
+
+
+@pytest.mark.parametrize("transpose_lhs", [False, True])
+@pytest.mark.parametrize("chain", [16, 64, 192, 1000])
+def test_plain_version_chain_lengths(transpose_lhs, chain):
+    """``chain`` cuts the product into runs of k (the kernel's chains, with
+    a ragged last run): exact on dyadic values, within float32 rounding of
+    the whole-k product on random ones."""
+    rng = np.random.default_rng(chain)
+    m, k, n, reps = 32, 208, 48, 3
+    a, b = _bf16_operands(rng, m, k, n, transpose_lhs, True)
+    whole = mp.mma_probe_reference(a, b, reps, transpose_lhs)
+    assert torch.equal(mp.mma_probe_reference(a, b, reps, transpose_lhs,
+                                              chain=chain), whole)
+    a, b = _bf16_operands(rng, m, k, n, transpose_lhs, False)
+    whole = mp.mma_probe_reference(a, b, reps, transpose_lhs)
+    got = mp.mma_probe_reference(a, b, reps, transpose_lhs, chain=chain)
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), rtol=2e-6)
+    if chain >= k:
+        assert torch.equal(got, whole)
+
+
+def test_chain_and_variant_checks():
+    a, b = _bf16_operands(np.random.default_rng(2), 16, 32, 16, False, False)
+    with pytest.raises(ValueError, match="chain"):
+        mp.mma_probe_reference(a, b, chain=0)
+    with pytest.raises(ValueError, match="variant"):
+        mp._launch(a, b, variant="mma")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mp._launch(a, b)            # the kernel never runs on CPU tensors
+    assert mp.CHAIN_SLICES is None and mp.SLICE == 64

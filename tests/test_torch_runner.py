@@ -131,8 +131,9 @@ def test_cli_run_cache_dir_takes_the_compacted_path(tmp_path, port_run):
 
 
 @pytest.mark.parametrize("argv", [
-    ["run", "--cbet-only"], ["run", "--composed"], ["run", "--checkpoint", "c"],
-    ["run", "--resume"], ["run", "--min-tiles", "4"],
+    ["run", "--checkpoint"], ["run", "--beam-groups", "some"],
+    ["run", "--min-tiles", "many"], ["run", "--cbet-checkpoint"],
+    ["track"],
     ["run", "--profile-dir", "p"], ["track", "--pairs", "0:1"],
     ["run", "--deposit-backend", "pallas"], ["run", "--parity", "Reference"],
 ])
@@ -152,8 +153,33 @@ def test_phase_timers_and_memory_preflight():
     assert "rt: Init" in rep and "rt: Tracing" in rep and "Total" in rep
     assert set(t.as_dict()) >= {"Init", "Tracing", "Total"}
     check_memory(Config(), "cpu")         # no card: nothing to check
-    # OMEGA: ~1.47M slots of 57-byte state (x4) + tables + grids
+    # OMEGA: ~1.23M traced slots x ~490 bytes + tables + grids
     assert 2e8 < estimate_device_bytes(Config()) < 1e9
+
+
+def test_memory_estimate_covers_the_trace_measured_on_the_card():
+    """The trace's terms: the traced slots (live tiles, block-padded), the
+    window's seven (batch, N) rows, and no less than the peaks that
+    ``scripts/peak_memory.py`` read on an NVIDIA H100 80GB HBM3 (OMEGA f32
+    585,352,704 bytes, f64 983,540,736; BASELINE config 4 f32
+    26,153,766,912)."""
+    from cbet_raytracing_3d_tpu_torch import runner
+    cfg = Config()
+    n = runner.traced_slots(cfg)
+    assert n == 4800 * 256
+    est = estimate_device_bytes(cfg)
+    assert estimate_device_bytes(cfg.replace(deposit_batch_steps=25)) - est \
+        == 20 * 28 * n
+    assert est >= 585352704
+    assert estimate_device_bytes(cfg.replace(dtype="float64")) >= 983540736
+    c4 = Config(nx=200, ny=200, nz=200, rays_per_zone=15, tile_zones=2,
+                deposit_box_x=24, deposit_box_y=24, deposit_box_z=24)
+    assert runner.traced_slots(c4) == 60480 * 900
+    assert 26153766912 <= estimate_device_bytes(c4) < 1.1 * 26153766912
+    # the CBET stage alone never needs more than the run with it
+    for g in (1, 4):
+        alone = estimate_device_bytes(c4, True, g, trace=False)
+        assert alone <= estimate_device_bytes(c4, True, g)
 
 
 def test_package_never_imports_jax_statically():
