@@ -1,7 +1,7 @@
 """Command-line interface of the PyTorch port.
 
-Counterpart of the ``run`` and ``dump`` subcommands of
-``cbet_raytracing_3d_tpu/cli.py``.  Every config field is a flag:
+Counterpart of ``cbet_raytracing_3d_tpu/cli.py``.  Every config field is a
+flag:
 
 * ``run``  — full simulation (the plain trace; with ``--cbet`` also the CBET
               fixed-point solve), outputs to ``--out-dir``; by default
@@ -12,10 +12,22 @@ Counterpart of the ``run`` and ``dump`` subcommands of
               forms, ``runner.run_composed`` and, with ``--cbet``,
               ``models.cbet_composed.cbet_solve_composed``; their
               checkpoints are the port's own format, not the JAX package's
+              ``--profile-dir DIR`` records the Tracing phase with
+              ``torch.profiler`` into DIR.  Under ``torchrun`` (``WORLD_SIZE``
+              set) every rank joins one process group and ``runner.run``
+              shards the trace and the CBET solve over the ranks; rank 0
+              writes and prints.  ``--dist-backend`` is NCCL by default on
+              the card (one card per rank, ``cuda:$LOCAL_RANK``) and gloo
+              with ``--device cpu``; ``--device cuda:0 --dist-backend gloo``
+              lets several ranks share one card.  NCCL refuses two ranks on
+              one device, before the group forms
 * ``dump`` — reference-compatible -D PRINT text dump to stdout
               (Makefile:14-17 golden-test replacement)
+* ``track`` — per-step trajectories of selected rays (``--pairs
+              beam:ray,...``, ``--out`` npz; models/tracker.py), a JSON
+              summary on stdout; exit 2 on malformed or out-of-range pairs
 
-Both run on the card; without one they stop unless ``--device cpu`` is
+All run on the card; without one they stop unless ``--device cpu`` is
 given (``--device`` overrides).
 
 Usage examples::
@@ -32,6 +44,13 @@ Usage examples::
     python -m cbet_raytracing_3d_tpu_torch.cli run --cbet --resume \\
         --checkpoint out/trace.ckpt.npz --cbet-checkpoint out/cbet.ckpt.npz
     python -m cbet_raytracing_3d_tpu_torch.cli dump --nbeams 1 > edep.txt
+    torchrun --nproc-per-node 4 -m cbet_raytracing_3d_tpu_torch.cli run \
+        --cbet --cbet-gain-mode kernel_cell
+    torchrun --nproc-per-node 2 -m cbet_raytracing_3d_tpu_torch.cli run \
+        --device cuda:0 --dist-backend gloo
+    python -m cbet_raytracing_3d_tpu_torch.cli run --profile-dir out/prof
+    python -m cbet_raytracing_3d_tpu_torch.cli track --pairs 0:9800,17:4321 \
+        --out out/trajectories.npz
 """
 
 from __future__ import annotations
@@ -39,6 +58,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import typing
 
@@ -183,12 +203,32 @@ def main(argv=None) -> int:
     p_run.add_argument("--cbet-only", action="store_true",
                        help="composed --cbet: skip the plain composed trace "
                             "and run only the CBET stage")
+    p_run.add_argument("--profile-dir", default=None, metavar="DIR",
+                       help="record the Tracing phase with torch.profiler "
+                            "and export it into DIR (trace_rank<r>.json)")
+    p_run.add_argument("--dist-backend", default=None,
+                       choices=("nccl", "gloo"),
+                       help="under torchrun: the process group's backend "
+                            "(default nccl on the card, gloo with --device "
+                            "cpu; gloo lets ranks share one card)")
 
     p_dump = sub.add_parser("dump", help="-D PRINT compatible dump to stdout")
     _add_config_flags(p_dump)
 
+    p_track = sub.add_parser(
+        "track", help="record per-step trajectories of selected rays")
+    _add_config_flags(p_track)
+    p_track.add_argument(
+        "--pairs", required=True,
+        help="comma list of beam:ray thread ids, e.g. '0:9800,17:4321'")
+    p_track.add_argument("--out", default="out/trajectories.npz",
+                         help="npz output path")
+
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
+    rank = 0
+    if args.cmd == "run" and "WORLD_SIZE" in os.environ:
+        rank = _join_group(parser, args)
     if args.device is None:
         try:
             args.device = default_device()
@@ -207,6 +247,10 @@ def main(argv=None) -> int:
             return 2
         composed = (args.composed or args.checkpoint or args.resume
                     or args.cbet_checkpoint or args.cbet_only)
+        if composed and args.profile_dir:
+            print("--profile-dir records runner.run's Tracing phase, not "
+                  "the composed forms", file=sys.stderr)
+            return 2
         if composed:
             if args.resume and not (args.checkpoint or args.cbet_checkpoint):
                 print("--resume requires --checkpoint PATH (trace) and/or "
@@ -216,7 +260,10 @@ def main(argv=None) -> int:
         else:
             res = run(cfg, with_cbet=args.cbet, device=args.device,
                       verbose=not args.quiet,
-                      cache_dir=args.cache_dir or None)
+                      cache_dir=args.cache_dir or None,
+                      profile_dir=args.profile_dir)
+        if rank != 0:
+            return 0            # every rank holds the result; rank 0 writes
         paths = write_outputs(res, args.out_dir,
                               tuple(args.formats.split(",")))
         if not args.quiet:
@@ -235,7 +282,86 @@ def main(argv=None) -> int:
         sys.stdout.write(dump_print_format(res.edep))
         return 0
 
+    if args.cmd == "track":
+        return _track(cfg, args)
+
     return 1
+
+
+def _join_group(parser: argparse.ArgumentParser,
+                args: argparse.Namespace) -> int:
+    """Join the process group ``torchrun`` describes (``WORLD_SIZE``,
+    ``RANK``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_*``): the
+    rank's device (default ``cuda:$LOCAL_RANK``), the backend (default
+    NCCL on the card, gloo on the CPU), then ``init_process_group``.
+    Returns the rank.  NCCL with several ranks on one device is refused
+    before the group forms; nothing picks another backend or device."""
+    from .parallel.multihost import initialize_multihost
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                     os.environ["WORLD_SIZE"]))
+    explicit = args.device is not None
+    if not explicit:
+        try:
+            default_device()
+        except RuntimeError as e:
+            parser.error(str(e))
+        args.device = f"cuda:{local}"
+    device = torch.device(args.device)
+    backend = args.dist_backend or ("nccl" if device.type == "cuda"
+                                    else "gloo")
+    if backend == "nccl":
+        if device.type != "cuda":
+            parser.error(f"--dist-backend nccl needs CUDA devices, got "
+                         f"--device {args.device}; the CPU takes "
+                         "--dist-backend gloo")
+        if local_world > 1 and explicit:
+            parser.error(f"NCCL cannot run {local_world} ranks on one device "
+                         f"({args.device}); pass --dist-backend gloo to let "
+                         "ranks share a card")
+        if local_world > torch.cuda.device_count():
+            parser.error(f"NCCL needs a card per rank: {local_world} ranks "
+                         f"on this host, {torch.cuda.device_count()} "
+                         "card(s); pass --dist-backend gloo --device cuda:0 "
+                         "to let ranks share one")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    initialize_multihost(backend=backend)
+    import atexit
+    import torch.distributed as dist
+    atexit.register(dist.destroy_process_group)
+    return dist.get_rank()
+
+
+def _track(cfg: Config, args: argparse.Namespace) -> int:
+    """``cli track`` (JAX ``cli.py:238-268``): the JSON summary on stdout,
+    exit 2 on malformed or out-of-range pairs."""
+    from .models.tracker import track_rays
+    try:
+        pairs = [tuple(int(v) for v in p.split(":"))
+                 for p in args.pairs.split(",")]
+        if any(len(p) != 2 for p in pairs):
+            raise ValueError
+    except ValueError:
+        print(f"--pairs: expected 'beam:ray,beam:ray,...', got "
+              f"{args.pairs!r}", file=sys.stderr)
+        return 2
+    try:
+        traj = track_rays(cfg, [p[0] for p in pairs], [p[1] for p in pairs],
+                          device=args.device)
+    except ValueError as e:     # out-of-range ids: the same clean exit
+        print(f"--pairs: {e}", file=sys.stderr)
+        return 2
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    traj.save_npz(args.out)
+    print(json.dumps({
+        "rays": traj.n,
+        "launched": int(traj.launched.sum()),
+        "steps": traj.steps.tolist(),
+        "crossings": traj.crossing_counts().tolist(),
+        "out": args.out,
+    }, indent=2))
+    return 0
 
 
 if __name__ == "__main__":

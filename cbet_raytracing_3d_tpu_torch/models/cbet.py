@@ -1,9 +1,10 @@
 """Cross-beam energy transfer (CBET): the fixed-point solve in PyTorch.
 
 Counterpart of ``cbet_raytracing_3d_tpu/models/cbet.py`` (its docstring has
-the model) on one device, unsegmented: trace -> per-beam intensity fields
--> gain fields -> retrace, with under-relaxation, until the relative field
-change drops below ``cbet_tol``.
+the model): trace -> per-beam intensity fields -> gain fields -> retrace,
+with under-relaxation, until the relative field change drops below
+``cbet_tol``; on one device or on the ranks of a ``torch.distributed``
+process group (below).
 
 * The host part (``pair_couplings``, ``gain_prefactor_field``,
   ``_node_rhat``, ``_interp_matrix``, ``live_tile_slots``) is float64 NumPy,
@@ -41,7 +42,32 @@ change drops below ``cbet_tol``.
   their gain rows, their intensity grids -- the same code with fewer groups
   (``models/cbet_composed.py`` traces the beams in serial groups).
 
-Not here (ROADMAP): the mesh solve (M11).
+* On several ranks (the JAX mesh solve: ``_build_solver``
+  ``models/cbet.py:1227-1400``, ``make_cbet_trace_fn`` :436-476,
+  ``_make_sharded_gain_fn`` :188-258) each rank owns whole beams,
+  ``ceil(B / W)`` or ``floor(B / W)`` in rank order
+  (``parallel/sharding.rank_beams``): it traces them with K2 over its own
+  groups and owns their (n_local, Ph) intensity rows.  Once per iteration
+  the intensity is gathered (``all_gather_rows``), and K3 in its ``b_out``
+  form computes the rank's own gain rows (``pair_u`` rows ``b0:b0 +
+  n_local``, the partner sum over all B; ``cbet_gain_sharded``, the
+  default), or the full gain on every rank (``cbet_gain_sharded=False``)
+  of which the rank reads its rows.  The lookup and K4 "cell" read those
+  local rows.  The edep grid and the overflow counts are summed
+  (``all_reduce``); the residual's maxima and Anderson's dot products are
+  reduced, so every rank takes the same iterations; the result (edep,
+  intensity, stats) is the same on every rank.  The JAX rules hold, with
+  its messages: ``cbet_gain_mode="kernel"`` and light iterations are
+  single-device, kernel_cell needs the sharded gain table, and
+  ``cbet_gain_sharded=True`` raises where the gain cannot be sharded.
+
+  What the JAX mesh solve has and this one drops, with the reason: the
+  phantom beams (:1254-1264) and the beam-straddling "scatter" layout
+  (:1227-1236, ``intensity_scatter`` :1350) exist because ``shard_map``
+  needs equal shard shapes; torch ranks do not, so uneven beam counts are
+  uneven ranks, and where the JAX solve falls back to scatter (fewer beams
+  than devices) the ranks beyond the beam count own no beam: they trace
+  nothing and join every collective.
 """
 
 from __future__ import annotations
@@ -59,6 +85,7 @@ from ..ops import deposit as dep_ops
 from ..ops import gain as gain_ops
 from ..ops import gain_deposit as gd_ops
 from ..ops.gain import resonance  # noqa: F401  (models/cbet.py:119)
+from ..parallel import sharding as sh
 from ..parallel.sharding import pad_rays
 from . import raytracer as rt
 from .tileplan import DroppedAliveRaysError, TileCompactor  # noqa: F401
@@ -135,25 +162,55 @@ def _interp_matrix(n_full: int, nh: int, s: int) -> np.ndarray:
     return m
 
 
-def make_gain_fn(cfg: Config, ctx: rt.TraceContext, device="cpu",
-                 gain_op: Callable | None = None):
-    """``I (B, Ph) f32 -> G (B, Ph) f32`` on the (possibly coarsened) CBET
-    node grid (``models/cbet.py:124``).  ``rhat_pre`` (4, Ph) and
-    ``pair_u`` (B, B, 3) are built and uploaded once; ``gain_op`` (default
-    ``ops/gain.gain``: the kernel for CUDA tensors) does the reduction."""
+def _gain_tables(cfg: Config, ctx: rt.TraceContext, device):
+    """``(pair_u (B, B, 3), rhat_pre (4, Ph))`` float32 on ``device``."""
     s = cfg.cbet_grid_downsample
     rhat = _node_rhat(cfg, s)
     pre = gain_prefactor_field(cfg, ctx.fields)[::s, ::s, ::s].reshape(-1)
     rp = np.concatenate([rhat, pre[None, :]], axis=0).astype(np.float32)
     pu = pair_couplings(ctx.beam_norm, cfg.machnum).astype(np.float32)
-    rp_t = torch.from_numpy(rp).to(device)
-    pu_t = torch.from_numpy(pu).to(device)
+    return torch.from_numpy(pu).to(device), torch.from_numpy(rp).to(device)
+
+
+def make_gain_fn(cfg: Config, ctx: rt.TraceContext, device="cpu",
+                 gain_op: Callable | None = None,
+                 mesh: sh.Ranks | None = None, sharded: bool = False):
+    """``I (B, Ph) f32 -> G (B, Ph) f32`` on the (possibly coarsened) CBET
+    node grid (``models/cbet.py:124``).  ``rhat_pre`` (4, Ph) and
+    ``pair_u`` (B, B, 3) are built and uploaded once; ``gain_op`` (default
+    ``ops/gain.gain``: the kernel for CUDA tensors) does the reduction.
+
+    On a ``mesh`` of several ranks (``_make_sharded_gain_fn``,
+    ``models/cbet.py:188``) it maps the rank's rows, ``I (n_local, Ph) ->
+    G (n_local, Ph)``: the intensity is gathered once
+    (``sharding.all_gather_rows``: the coupling is all-to-all over beams);
+    ``sharded`` computes only the rank's rows, K3's ``b_out`` form on
+    ``pair_u[b0:b0 + n_local]`` with the partner sum over all B; otherwise
+    every rank computes the whole (B, Ph) gain (the pair kernel) and keeps
+    its rows.  Each row is the same arithmetic either way.  A rank without
+    beams joins the gather and computes nothing."""
+    pu_t, rp_t = _gain_tables(cfg, ctx, device)
     op = gain_op or gain_ops.gain
+    world = 1 if mesh is None else mesh.world
+    if world == 1:
+        def gain(intensity):
+            return op(pu_t, rp_t, intensity)
+        return gain
 
-    def gain(intensity):
-        return op(pu_t, rp_t, intensity)
+    beams = sh.rank_beams(cfg.nbeams, world)
+    counts = [n for _, n in beams]
+    b0, nl = beams[mesh.rank]
+    pu_l = pu_t[b0:b0 + nl].contiguous()
 
-    return gain
+    def gain_rows(intensity):
+        full = sh.all_gather_rows(intensity, mesh, counts)
+        if nl == 0:
+            return intensity
+        if sharded:
+            return op(pu_l, rp_t, full)
+        return op(pu_t, rp_t, full)[b0:b0 + nl]
+
+    return gain_rows
 
 
 def make_gain_upsampler(cfg: Config, device="cpu"):
@@ -250,11 +307,12 @@ def resolve_cbet_ops(cfg: Config, device) -> CbetOps:
 batched = rt.batched
 
 
-def check_cbet_config(cfg: Config) -> None:
+def check_cbet_config(cfg: Config, world: int = 1) -> None:
     """The JAX package's rules for the CBET switches
-    (``models/cbet.py:498-532``, single device): a switch this configuration
-    cannot run raises ``ValueError``, since running another model instead
-    would silently compute something else."""
+    (``models/cbet.py:498-532``), and on ``world`` > 1 ranks those of its
+    mesh solve (:func:`gain_sharded`, ``models/cbet.py:450-463``, :1452): a
+    switch this configuration cannot run raises ``ValueError``, since
+    running another model instead would silently compute something else."""
     if cfg.cbet_gain_mode not in GAIN_MODES:
         raise ValueError(f"unknown cbet_gain_mode {cfg.cbet_gain_mode!r} "
                          f"(expected one of {GAIN_MODES})")
@@ -290,6 +348,44 @@ def check_cbet_config(cfg: Config) -> None:
             "cbet_light_iterations=True (edep_skip) requires a batched "
             "deposit path: deposit_batch_steps > 1 dividing the chunk "
             "lengths")
+    if world > 1:
+        if cfg.cbet_gain_mode == "kernel":
+            raise ValueError("cbet_gain_mode='kernel' (the deviating "
+                             "trilinear window model) is single-device "
+                             "only; use 'kernel_cell' or 'lookup' on a "
+                             "mesh")
+        if cfg.cbet_light_iterations:
+            raise ValueError(
+                "cbet_light_iterations=True is single-device only (mesh "
+                "solves run full iterations)")
+        gain_sharded(cfg, world)
+
+
+def gain_sharded(cfg: Config, world: int) -> bool:
+    """Whether a solve on ``world`` ranks shards the gain table
+    (``Config.cbet_gain_sharded``, ``models/cbet.py:1273-1291``): it can
+    with the sliced lookup and kernel_cell; kernel_cell must (its K4 reads
+    the rank's own gain rows); None takes it where it can."""
+    if world <= 1:
+        return False
+    can = ((cfg.cbet_gain_mode == "lookup" and cfg.cbet_gain_sliced)
+           or cfg.cbet_gain_mode == "kernel_cell")
+    want = cfg.cbet_gain_sharded
+    if want is None:
+        return can
+    if want and not can:
+        raise ValueError(
+            "cbet_gain_sharded=True requires the beam-sharded mesh layout "
+            "(whole beams per shard) with cbet_gain_sliced + "
+            "cbet_gain_mode='lookup', or cbet_gain_mode='kernel_cell'; "
+            f"this solve resolved {world} ranks, "
+            f"sliced={cfg.cbet_gain_sliced}, "
+            f"gain_mode={cfg.cbet_gain_mode!r}")
+    if not want and cfg.cbet_gain_mode == "kernel_cell":
+        raise ValueError("cbet_gain_mode='kernel_cell' on a mesh "
+                         "requires the beam-sharded gain table "
+                         "(cbet_gain_sharded)")
+    return bool(want)
 
 
 def _path_element(state: rt.RayState, d) -> torch.Tensor:
@@ -541,11 +637,24 @@ def make_cbet_trace_fn(cfg: Config, ctx: rt.TraceContext,
     return trace
 
 
-def _step_update(i_new, i_old, relax: float):
-    """Max-abs delta and scale, and the relaxed blend
-    (``models/cbet.py:1162``): THE one copy of the update arithmetic."""
-    delta = (i_new - i_old).abs().max()
-    scale = i_old.abs().max()
+def _amax(t: torch.Tensor) -> torch.Tensor:
+    """max |t| as a 0-dim tensor; 0 for a rank that holds no rows."""
+    return t.abs().max() if t.numel() else t.new_zeros(())
+
+
+def _maxima(delta, scale, mesh: sh.Ranks | None):
+    """The residual's maxima over every rank's rows."""
+    if mesh is None or mesh.world == 1:
+        return delta, scale
+    both = sh.all_reduce_max(torch.stack([delta, scale]), mesh)
+    return both[0], both[1]
+
+
+def _step_update(i_new, i_old, relax: float, mesh: sh.Ranks | None = None):
+    """Max-abs delta and scale (over every rank's rows with ``mesh``), and
+    the relaxed blend (``models/cbet.py:1162``): THE one copy of the update
+    arithmetic."""
+    delta, scale = _maxima(_amax(i_new - i_old), _amax(i_old), mesh)
     blended = relax * i_new + (1.0 - relax) * i_old
     return delta, scale, blended
 
@@ -560,7 +669,7 @@ class _CbetSolver:
 
     gain_fn: Any
     upsample: Any
-    trace: Any                 # gain (B, P) -> (edep, inodes, state, steps)
+    trace: Any                 # gain (nb, P) -> (edep, inodes, state, steps)
     # the same without the edep deposit, for the fixed-point iterations
     # (cbet_light_iterations; None when off)
     trace_light: Any
@@ -571,6 +680,13 @@ class _CbetSolver:
     tile_widths: list = dataclasses.field(default_factory=list)
     # memoized zero-gain (iteration-0) intensity (cbet_seed_zero_gain)
     seed_intensity: Any = None
+    # the ranks (one without a process group), the beams (first, count) of
+    # every rank, whether the gain table is sharded, and this rank's trace
+    # seconds before the collectives (with a process group)
+    mesh: Any = None
+    beams: list = dataclasses.field(default_factory=list)
+    gain_sharded: bool = False
+    busy_seconds: list = dataclasses.field(default_factory=list)
 
 
 _SOLVER_CACHE: dict = {}
@@ -578,18 +694,19 @@ _SOLVER_CACHE_MAX = 3
 
 
 def _get_solver(cfg: Config, ctx: rt.TraceContext, device,
-                ops: CbetOps) -> _CbetSolver:
+                ops: CbetOps, mesh: sh.Ranks | None = None) -> _CbetSolver:
     """The cached solver for (cfg minus the iteration-control fields,
-    device, ops) and this very ``ctx`` (``models/cbet.py:1173``, without
-    the mesh)."""
+    device, ops, the ranks) and this very ``ctx``
+    (``models/cbet.py:1173``)."""
+    mesh = mesh or sh.make_mesh()
     key = (cfg.replace(cbet_max_iters=1, cbet_tol=0.0, cbet_relax=0.5,
                        cbet_seed_zero_gain=True, cbet_accel="none"),
-           str(device), ops)
+           str(device), ops, mesh.key)
     hit = _SOLVER_CACHE.pop(key, None)
     if hit is not None and hit[0] is ctx:
         _SOLVER_CACHE[key] = hit
         return hit[1]
-    solver = _build_solver(cfg, ctx, device, ops)
+    solver = _build_solver(cfg, ctx, device, ops, mesh)
     while len(_SOLVER_CACHE) >= _SOLVER_CACHE_MAX:
         _SOLVER_CACHE.pop(next(iter(_SOLVER_CACHE)))
     _SOLVER_CACHE[key] = (ctx, solver)
@@ -613,61 +730,100 @@ def solver_state(cfg: Config, ctx: rt.TraceContext, device):
 
 
 def _build_solver(cfg: Config, ctx: rt.TraceContext, device,
-                  ops: CbetOps) -> _CbetSolver:
-    """``models/cbet.py:1199``, single device: the per-beam block-padded
-    live-tile state and its beam ids, uploaded once."""
+                  ops: CbetOps, mesh: sh.Ranks | None = None) -> _CbetSolver:
+    """``models/cbet.py:1199``: the per-beam block-padded live-tile state
+    and its beam ids, uploaded once; on several ranks the rank's beams'
+    blocks of them, their beam ids counted from the rank's first beam."""
+    mesh = mesh or sh.make_mesh()
     state0, bid_t, tpg = solver_state(cfg, ctx, device)
     field4 = ctx.field4.to(device)
-
+    nb = cfg.nbeams
+    beams = sh.rank_beams(nb, mesh.world)
+    b0, nl = beams[mesh.rank]
+    if mesh.world > 1:
+        rows = tpg * ctx.layout.rays_per_tile
+        lo, hi = b0 * rows, (b0 + nl) * rows
+        state0 = state0.map(lambda a: a[lo:hi].clone())     # the rest freed
+        # dead padding slots carry beam 0: clamped, never read as a live
+        # ray's
+        bid_t = (bid_t[lo:hi] - b0).clamp_(min=0)
+    hx, hy, hz = cfg.cbet_grid_shape
+    dtype = getattr(torch, cfg.dtype)
+    busy = []              # the rank's trace seconds (with a process group)
     widths = []            # the last trace's tile widths (cbet_segmented)
 
     def checked(fn):
         def trace(gain):
             widths.clear()
-            edep, inodes, st, of, steps = fn(field4, gain, bid_t, state0,
-                                             widths)
+            if mesh.distributed:
+                _sync(device)
+                t0 = time.perf_counter()
+            if fn is None:         # a rank without beams
+                edep = torch.zeros(cfg.edep_shape,
+                                   dtype=getattr(torch, cfg.edep_dtype),
+                                   device=device)
+                inodes = torch.zeros((0, hx * hy * hz), dtype=dtype,
+                                     device=device)
+                st, of, steps = state0, torch.zeros((), dtype=torch.int32,
+                                                    device=device), 0
+            else:
+                edep, inodes, st, of, steps = fn(field4, gain, bid_t, state0,
+                                                 widths)
+            if mesh.distributed:
+                _sync(device)
+                busy.append(time.perf_counter() - t0)
+                of = sh.all_reduce_sum(of.reshape(1).to(torch.int64), mesh)
             rt.check_overflow(int(of), cfg)
             return edep, inodes, st, steps
         return trace
 
-    trace = checked(make_cbet_trace_fn(cfg, ctx, tiles_per_group=tpg,
-                                       ops=ops))
+    def maker(light=False):
+        if nl == 0:
+            return None
+        return make_cbet_trace_fn(cfg, ctx, tiles_per_group=tpg, ops=ops,
+                                  light=light, n_beams=nl)
+
+    trace = checked(maker())
     # light iterations (models/cbet.py:1441-1459): an opt-in because the
     # final full trace costs one more trace than the deposits it skips save
-    # where the deposits are a small share of the trace
-    trace_light = (checked(make_cbet_trace_fn(cfg, ctx, tiles_per_group=tpg,
-                                              ops=ops, light=True))
+    # where the deposits are a small share of the trace; one device only
+    trace_light = (checked(maker(light=True))
                    if cfg.cbet_light_iterations else None)
 
     def make_zero_gain():
-        return torch.zeros((cfg.nbeams, cfg.nx * cfg.ny * cfg.nz),
-                           dtype=getattr(torch, cfg.dtype), device=device)
+        return torch.zeros((nl, cfg.nx * cfg.ny * cfg.nz), dtype=dtype,
+                           device=device)
 
     upsample = (make_gain_upsampler(cfg, device)
                 if cfg.cbet_grid_downsample > 1 else (lambda g: g))
-    return _CbetSolver(gain_fn=make_gain_fn(cfg, ctx, device, ops.gain),
-                       upsample=upsample, trace=trace,
+    sharded = gain_sharded(cfg, mesh.world)
+    gain_fn = make_gain_fn(cfg, ctx, device, ops.gain, mesh, sharded)
+    return _CbetSolver(gain_fn=gain_fn, upsample=upsample, trace=trace,
                        trace_light=trace_light, state0=state0, bid=bid_t,
-                       make_zero_gain=make_zero_gain, tile_widths=widths)
+                       make_zero_gain=make_zero_gain, tile_widths=widths,
+                       mesh=mesh, beams=beams, gain_sharded=sharded,
+                       busy_seconds=busy)
 
 
-def _accel_next(i_new, i_old, prev_x, prev_f, relax: float):
+def _accel_next(i_new, i_old, prev_x, prev_f, relax: float,
+                mesh: sh.Ranks | None = None):
     """A later Anderson(m=1) update (``models/cbet.py:1501-1516``): the
     relaxed step minus the least-squares secant correction
     ``gamma * (dx + relax * df)``.  The dot products run on the residuals
     divided by the scale (gamma does not change, and squared raw residuals
     overflow float32 at large intensities); gamma is 0 on a degenerate
-    secant and clipped to [-2, 2]."""
+    secant and clipped to [-2, 2].  With ``mesh`` the maxima and the dot
+    products run over every rank's rows."""
     f = i_new - i_old
-    delta = f.abs().max()
-    scale = i_old.abs().max()
+    delta, scale = _maxima(_amax(f), _amax(i_old), mesh)
     tiny = torch.finfo(f.dtype).tiny
     s = torch.clamp(scale, min=tiny)
     fs = (f / s).reshape(-1)
     dfs = ((f - prev_f) / s).reshape(-1)
-    den = torch.dot(dfs, dfs)
-    gamma = torch.where(den > 0,
-                        torch.dot(fs, dfs) / torch.clamp(den, min=tiny), 0.0)
+    num, den = torch.dot(fs, dfs), torch.dot(dfs, dfs)
+    if mesh is not None and mesh.world > 1:
+        num, den = sh.all_reduce_sum(torch.stack([num, den]), mesh)
+    gamma = torch.where(den > 0, num / torch.clamp(den, min=tiny), 0.0)
     gamma = torch.clamp(gamma, -2.0, 2.0)
     x_next = (i_old + relax * f) - gamma * ((i_old - prev_x)
                                             + relax * (f - prev_f))
@@ -680,12 +836,12 @@ def _sync(device) -> None:
 
 
 def cbet_solve(cfg: Config, ctx: rt.TraceContext, device=None,
-               verbose: bool = False, ops: CbetOps | None = None
-               ) -> CbetResult:
+               verbose: bool = False, ops: CbetOps | None = None,
+               group=None) -> CbetResult:
     """Fixed-point CBET solve on ``device`` (default: the card,
     ``raytracer.default_device``; ``"cpu"`` for a CPU run);
-    ``models/cbet.py:1534``/``:1559``, single
-    device, its traces compacted with ``cfg.cbet_segmented``.  ``ops``
+    ``models/cbet.py:1534``/``:1559``, its traces compacted with
+    ``cfg.cbet_segmented``.  ``ops``
     overrides the kernel entry points (default: resolved from
     ``cfg.deposit_backend``).
 
@@ -698,12 +854,23 @@ def cbet_solve(cfg: Config, ctx: rt.TraceContext, device=None,
     iterates by Anderson(m=1) instead of the plain relaxed step.  The stats
     carry the JAX solve's keys plus the per-iteration gain/trace/update
     seconds (each ends in a device synchronize), the steps of every trace
-    (the final full trace last) and the final trace's seconds."""
-    check_cbet_config(cfg)
+    (the final full trace last) and the final trace's seconds.
+
+    On the ranks of ``group`` (default: the default process group, when
+    ``torch.distributed`` is initialized; the module docstring has the
+    layout) every rank returns the same result; ``stats`` adds
+    ``intensity_mode`` "beam_sharded", ``gain_sharded``, ``devices``, the
+    backend, each rank's beams, trace seconds, trace steps and tile widths,
+    and the seconds spent in collectives."""
+    mesh = sh.make_mesh(group)
+    check_cbet_config(cfg, mesh.world)
     device = torch.device(device) if device is not None \
         else rt.default_device()
     ops = ops or resolve_cbet_ops(cfg, device)
-    solver = _get_solver(cfg, ctx, device, ops)
+    solver = _get_solver(cfg, ctx, device, ops, mesh)
+    mesh = solver.mesh
+    solver.busy_seconds.clear()
+    coll0 = mesh.collective_seconds
     hx, hy, hz = cfg.cbet_grid_shape
     gain_dtype = getattr(torch, cfg.dtype)
 
@@ -745,17 +912,18 @@ def cbet_solve(cfg: Config, ctx: rt.TraceContext, device=None,
         if prev_f is None:
             # the plain step, and the first Anderson update bit for bit
             # (models/cbet.py:1494-1499): its residual seeds the history
-            d_dev, s_dev, blended = _step_update(i_new, intensity, relax)
+            d_dev, s_dev, blended = _step_update(i_new, intensity, relax,
+                                                 mesh)
             f_cur = i_new - intensity if accel else None
         else:
             d_dev, s_dev, blended, f_cur = _accel_next(
-                i_new, intensity, prev_x, prev_f, relax)
+                i_new, intensity, prev_x, prev_f, relax, mesh)
         delta = float(d_dev) / max(float(s_dev), 1e-300)
         t3 = time.perf_counter()
         history.append(delta)
         for key, v in zip(split, (t3 - t0, t1 - t0, t2 - t1, t3 - t2)):
             split[key].append(v)
-        if verbose:
+        if verbose and mesh.rank == 0:
             print(f"cbet iter {it}: rel delta {delta:.3e} "
                   f"[gain {t1 - t0:.2f}s trace {t2 - t1:.2f}s "
                   f"update {t3 - t2:.2f}s]", flush=True)
@@ -781,19 +949,34 @@ def cbet_solve(cfg: Config, ctx: rt.TraceContext, device=None,
             print(f"cbet final edep trace {final_seconds:.2f}s", flush=True)
 
     tf = time.perf_counter()
-    stats = rt.trace_stats(ctx, state, solver.state0)
+    stats = sh.reduce_trace_stats(rt.trace_stats(ctx, state, solver.state0),
+                                  mesh, device)
+    own_steps = sum(trace_steps)
+    if mesh.world > 1:
+        # the whole result on every rank: the grid summed, the intensity
+        # rows gathered, the steps of each trace the most any rank took
+        edep = sh.all_reduce_sum(edep, mesh)
+        intensity = sh.all_gather_rows(intensity, mesh,
+                                       [n for _, n in solver.beams])
+        trace_steps = sh.all_reduce_max(
+            torch.tensor(trace_steps, device=device), mesh).tolist()
     edep_h = edep.to("cpu", torch.float64).numpy()
     inten_h = intensity.to("cpu", torch.float64).numpy().reshape(
         cfg.nbeams, hx, hy, hz)
     stats["result_fetch_seconds"] = time.perf_counter() - tf
-    stats["intensity_mode"] = "grouped"      # the per-beam grouped deposit
+    # the per-beam grouped deposit; on several ranks each over its own beams
+    stats["intensity_mode"] = "beam_sharded" if mesh.world > 1 else "grouped"
     stats["segmented"] = bool(cfg.cbet_segmented)
     # the last trace's per-beam tile widths (compacted traces only)
     stats["tile_widths"] = list(solver.tile_widths)
-    # the JAX solve's key for what this port does not run (the mesh's
-    # sharded gain) is written with the value this solve had, so the
-    # outputs keep one schema
-    stats["gain_sharded"] = False
+    stats["gain_sharded"] = solver.gain_sharded
+    stats["devices"] = mesh.world
+    if mesh.distributed:
+        stats.update(sh.rank_stats(mesh, solver.tile_widths,
+                                   sum(solver.busy_seconds),
+                                   trace_steps=own_steps))
+        stats["rank_beams"] = [n for _, n in solver.beams]
+        stats["collective_seconds"] -= coll0
     stats["light_iterations"] = solver.trace_light is not None
     stats["gain_mode"] = cfg.cbet_gain_mode
     stats["gain_rows2"] = cfg.cbet_gain_rows2

@@ -50,6 +50,7 @@ from typing import Any
 import torch
 
 from ..config import Config
+from ..parallel import sharding as sh
 from . import raytracer as rt
 from .cbet import (CbetResult, _step_update, _sync, make_cbet_trace_fn,
                    make_gain_fn, make_gain_upsampler, resolve_cbet_ops,
@@ -130,6 +131,7 @@ def cbet_solve_composed(cfg: Config, ctx: rt.TraceContext, *,
     from ..runner import check_memory
     from ..utils.checkpoint import load_cbet_checkpoint, save_cbet_checkpoint
     del cache_dir
+    sh.single_rank_only("cbet_solve_composed")
     check_composed_config(cfg)
     device = torch.device(device) if device is not None \
         else rt.default_device()

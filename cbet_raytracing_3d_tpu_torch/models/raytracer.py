@@ -117,16 +117,40 @@ def build_tile_layout(cfg: Config) -> TileLayout:
     """The JAX package's layout, including its per-beam tile count padded to
     a ``tiles_per_block`` multiple, so slots match one for one (the padding
     tiles are dead and never traced: see ``live_slots``)."""
+    rays_per_tile = (cfg.tile_zones * cfg.rays_per_zone) ** 2   # 256
+    tiles_per_beam = _tiles_per_beam(cfg)
+    gtile, rit = slots_of_rays(cfg, np.zeros(cfg.nrays, np.int64),
+                               np.arange(cfg.nrays, dtype=np.int64))
+    slot_in_beam = gtile * rays_per_tile + rit
+    slot_of = (np.arange(cfg.nbeams, dtype=np.int64)[:, None]
+               * tiles_per_beam * rays_per_tile + slot_in_beam[None, :])
+    n_slots = cfg.nbeams * tiles_per_beam * rays_per_tile
+    return TileLayout(rays_per_tile=rays_per_tile, tiles_per_beam=tiles_per_beam,
+                      n_slots=n_slots, slot_of=slot_of)
+
+
+def _tiles_per_beam(cfg: Config) -> int:
+    """Launch tiles of one beam: the lattice's tiles padded to a
+    ``tiles_per_block`` multiple."""
+    ntiles_axis = -(-cfg.zones_spanned // cfg.tile_zones)       # ceil
+    tpb = ntiles_axis * ntiles_axis
+    return -(-tpb // cfg.tiles_per_block) * cfg.tiles_per_block
+
+
+def slots_of_rays(cfg: Config, beams, ray_ids):
+    """Closed-form tile-layout coordinates of (beam, pre_raynum) pairs
+    (``models/raytracer.py:168``): ``(gtile, rit)``, the global tile id and
+    the ray's index within its tile, O(len(ids)).  The full layout's slot
+    is ``gtile * rays_per_tile + rit`` (:func:`build_tile_layout`'s
+    ``slot_of[beam, ray_id]``, which is built from it); a compact
+    (``prepare_device``) layout maps ``gtile`` through the traced tile
+    order of :func:`live_tile_ids` first."""
     rpz = cfg.rays_per_zone
     zones = cfg.zones_spanned
     tz = cfg.tile_zones
     side = tz * rpz                       # rays per tile edge (16)
-    rays_per_tile = side * side           # 256
-    ntiles_axis = -(-zones // tz)         # ceil
-    tpb = ntiles_axis * ntiles_axis
-    tiles_per_beam = -(-tpb // cfg.tiles_per_block) * cfg.tiles_per_block
-
-    kk = np.arange(cfg.nrays, dtype=np.int64)
+    ntiles_axis = -(-zones // tz)
+    kk = np.asarray(ray_ids, np.int64)
     b1, b2 = kk // (rpz * rpz), kk % (rpz * rpz)
     zy, zx = b1 // zones, b1 % zones
     ry2, rx2 = b2 // rpz, b2 % rpz
@@ -134,12 +158,8 @@ def build_tile_layout(cfg: Config) -> TileLayout:
     lx = (zx % tz) * rpz + rx2
     ly = (zy % tz) * rpz + ry2
     tile = ty * ntiles_axis + tx
-    slot_in_beam = tile * rays_per_tile + ly * side + lx
-    slot_of = (np.arange(cfg.nbeams, dtype=np.int64)[:, None]
-               * tiles_per_beam * rays_per_tile + slot_in_beam[None, :])
-    n_slots = cfg.nbeams * tiles_per_beam * rays_per_tile
-    return TileLayout(rays_per_tile=rays_per_tile, tiles_per_beam=tiles_per_beam,
-                      n_slots=n_slots, slot_of=slot_of)
+    gtile = np.asarray(beams, np.int64) * _tiles_per_beam(cfg) + tile
+    return gtile, ly * side + lx
 
 
 @dataclasses.dataclass(frozen=True)

@@ -32,7 +32,9 @@ version; on the CPU it equals :func:`gain_reference` bit for bit.
 The wrapper launches a kernel for CUDA tensors (after checking device,
 dtype, shape and contiguity; it raises on anything else) and takes the plain
 version only for CPU tensors.  ``LAUNCHES`` counts kernel launches,
-``PAIR_LAUNCHES`` those of them that were the pair kernel's.
+``PAIR_LAUNCHES`` those of them that were the pair kernel's and
+``B_OUT_LAUNCHES`` those in the ``b_out`` form (``Bo < B``: the rank's own
+rows of a beam-sharded gain, ``models/cbet.make_gain_fn``).
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ from .deposit import _on_cpu, _raise_on
 LAUNCHES = 0
 #: how many of them launched the pair kernel
 PAIR_LAUNCHES = 0
+#: how many of them computed fewer output rows than beams (``b_out``)
+B_OUT_LAUNCHES = 0
 
 
 def resonance(eta, iaw: float = k.IAW):
@@ -144,7 +148,7 @@ def gain(pair_u, rhat_pre, intensity):
     for antisymmetric couplings in the full form, else the all-pairs
     kernel), the plain version for CPU tensors.  Returns a new (Bo, P)
     float32 tensor."""
-    global LAUNCHES, PAIR_LAUNCHES
+    global LAUNCHES, PAIR_LAUNCHES, B_OUT_LAUNCHES
     args = (pair_u, rhat_pre, intensity)
     if _on_cpu(intensity, args, "gain"):
         return gain_reference(*args)
@@ -162,6 +166,7 @@ def gain(pair_u, rhat_pre, intensity):
     out = _launch(lib, pair_u, rhat_pre, intensity, pairs)
     LAUNCHES += 1
     PAIR_LAUNCHES += pairs
+    B_OUT_LAUNCHES += bo < B
     return out
 
 

@@ -7,8 +7,7 @@ TPU kernel runs a grid of ``GRID`` identical steps, each accumulating
 the matrix unit at the deposit and lookup matmul shapes of that script.  The
 kernel is ``csrc/mma_probe.cu``: ``wgmma.mma_async`` m64n128k16 fed by TMA
 loads through a ring of shared-memory stages; its header says how it differs
-from the TPU kernel.  The earlier ``mma.sync`` kernel stays in that file for
-the in-turn comparison only (:func:`_launch` with ``variant="wmma"``).
+from the TPU kernel.
 
 ``mma_probe(a, b, reps=REPS, transpose_lhs=False, grid=GRID) -> out``: ``a``
 is a bf16 (m, k) tensor, or (k, m) with ``transpose_lhs``; ``b`` a bf16
@@ -33,8 +32,7 @@ few MB.
 
 The wrapper launches the kernel for CUDA tensors (after checking device,
 dtype, shape and contiguity; it raises on anything else) and takes the plain
-version only for CPU tensors.  ``LAUNCHES`` counts the launches of the
-wgmma kernel, ``WMMA_LAUNCHES`` those of the ``mma.sync`` kernel.
+version only for CPU tensors.  ``LAUNCHES`` counts its launches.
 """
 
 from __future__ import annotations
@@ -43,11 +41,9 @@ import torch
 
 from .deposit import _on_cpu, _raise_on
 
-#: number of launches of the wgmma probe kernel in this process (the plain
+#: number of launches of the probe kernel in this process (the plain
 #: version and the CPU path do not count)
 LAUNCHES = 0
-#: number of launches of the earlier ``mma.sync`` kernel (``variant="wmma"``)
-WMMA_LAUNCHES = 0
 
 #: the TPU script's grid repetitions and products per step
 GRID = 512
@@ -60,7 +56,6 @@ SLICE = 64
 #: 64-deep slices the public wrapper chains in the wgmma accumulator between
 #: two rounded adds: None is the whole k, one rounded add per product
 CHAIN_SLICES = None
-VARIANTS = ("wgmma", "wmma")
 #: the six shapes of ``bench_mxu_shapes.py:78-84``: (label, m, k, n,
 #: transpose_lhs)
 SHAPES = (
@@ -132,22 +127,16 @@ def mma_probe(a, b, reps: int = REPS, transpose_lhs: bool = False,
 
 
 def _launch(a, b, reps: int = REPS, transpose_lhs: bool = False,
-            grid: int = GRID, variant: str = "wgmma",
-            chain_slices: int | None = CHAIN_SLICES,
+            grid: int = GRID, chain_slices: int | None = CHAIN_SLICES,
             resident: bool | None = None):
-    """One kernel launch on CUDA tensors, counted in ``LAUNCHES`` (wgmma) or
-    ``WMMA_LAUNCHES`` (the ``mma.sync`` kernel).
+    """One kernel launch on CUDA tensors, counted in ``LAUNCHES``.
 
-    ``variant="wgmma"`` is the probe; ``chain_slices`` its chain length in
-    64-deep slices (None: the whole k) and ``resident`` whether a chain's
-    slices stay in shared memory for all ``reps`` products (the chain must
-    then fit the ring, ``cbet_mma_probe_ring_slices()``) or are streamed
-    again for every product (None: resident where the chain fits).
-    ``variant="wmma"`` is the earlier ``mma.sync`` kernel, for comparisons."""
-    global LAUNCHES, WMMA_LAUNCHES
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown variant {variant!r} (expected one of "
-                         f"{VARIANTS})")
+    ``chain_slices`` is the chain length in 64-deep slices (None: the whole
+    k) and ``resident`` whether a chain's slices stay in shared memory for
+    all ``reps`` products (the chain must then fit the ring,
+    ``cbet_mma_probe_ring_slices()``) or are streamed again for every
+    product (None: resident where the chain fits)."""
+    global LAUNCHES
     if not a.is_cuda:
         raise RuntimeError("the mma probe kernel needs CUDA tensors")
     m, k, n = _dims(a, b, transpose_lhs)
@@ -173,23 +162,15 @@ def _launch(a, b, reps: int = REPS, transpose_lhs: bool = False,
     ring = lib.cbet_mma_probe_ring_slices()
     if resident is None:
         resident = run <= ring
-    if variant == "wgmma" and (run < 1 or (resident and run > ring)):
+    if run < 1 or (resident and run > ring):
         raise ValueError(f"chain_slices={chain_slices}: a resident chain is "
                          f"1..{ring} slices")
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        if variant == "wgmma":
-            rc = lib.cbet_mma_probe_bf16(
-                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, reps,
-                int(transpose_lhs), run, int(resident), grid, stream)
-        else:
-            rc = lib.cbet_mma_probe_wmma_bf16(
-                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, reps,
-                int(transpose_lhs), grid, stream)
+        rc = lib.cbet_mma_probe_bf16(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, reps,
+            int(transpose_lhs), run, int(resident), grid, stream)
     _raise_on(rc, lib, "mma probe")
-    if variant == "wgmma":
-        LAUNCHES += 1
-    else:
-        WMMA_LAUNCHES += 1
+    LAUNCHES += 1
     return out

@@ -4,10 +4,14 @@ upload) -> Tracing (device compute) -> Combining (grid download), with the
 reference's phase-timing report, plus run metrics and output writing.
 
 Counterpart of ``cbet_raytracing_3d_tpu/runner.py::run``,
-``run_resumable``, ``run_composed`` and ``write_outputs`` on one device,
-with the optional CBET stage: no mesh.  The trace and the CBET solve run
-over the live tiles, compacted mid-trace when a cache dir is given (the JAX
-CLI's default).
+``run_resumable``, ``run_composed`` and ``write_outputs``, with the optional
+CBET stage.  The trace and the CBET solve run over the live tiles, compacted
+mid-trace when a cache dir is given (the JAX CLI's default).  ``run`` runs
+on every rank of a ``torch.distributed`` process group when there is one
+(the JAX ``run(mesh=...)``, which takes every device by default): each rank
+traces its slot range and the grids are summed (``parallel/sharding.py``);
+the CBET solve splits the beams (``models/cbet.py``).  The resumable forms
+take no mesh in the JAX package either: they refuse more than one rank.
 
 Resumable runs.  ``run_resumable`` (the simplest invariant: uncompacted, a
 deposit per step) and ``run_composed`` (the compacted windowed trace, the
@@ -52,6 +56,7 @@ from .config import Config
 from .models import raytracer as rt
 from .models.cbet import cbet_solve, check_cbet_config
 from .models.raytracer import default_device
+from .parallel import sharding as sh
 from .utils.output import HAVE_H5PY, save_hdf5, save_npz
 from .utils.timers import PhaseTimers
 
@@ -199,24 +204,41 @@ def check_memory(cfg: Config, device, with_cbet: bool = False,
 
 
 def run(cfg: Config, *, with_cbet: bool = False, device=None,
-        verbose: bool = True, cache_dir: str | None = None) -> RunResult:
+        verbose: bool = True, cache_dir: str | None = None,
+        group=None, profile_dir: str | None = None) -> RunResult:
     """Full simulation run with reference-parity phase accounting, on
     ``device`` (default: the card, ``models.raytracer.default_device``,
     which raises without one; ``"cpu"`` for a CPU run).
     ``with_cbet`` adds the "CBET" phase: the fixed-point solve over the same
     scene (``RunResult.cbet``).
 
-    As ``runner.py:166-250`` of the JAX package: on the card the rays are
+    As ``runner.py:125-256`` of the JAX package: on the card the rays are
     initialized there (``prepare_device``), on the CPU by the host
     ``prepare``; with a ``cache_dir`` the trace drops dead tiles mid-trace
     with final-state write-back (``stats["segmented"]``, the tile counts in
     ``stats["tile_widths"]``) and the CBET solve runs with
     ``cbet_segmented=True``.  The port writes nothing into ``cache_dir``:
-    its compaction needs no plan to cache."""
+    its compaction needs no plan to cache.
+
+    On the ranks of ``group`` (default: the default process group, when
+    ``torch.distributed`` is initialized) every rank inits the whole scene
+    on its own device and keeps its slot range (the slots padded to a
+    multiple of ranks x ``rays_per_tile`` x ``tiles_per_block``), traces
+    it, compacted by its own ``alive`` mask, and the grids are summed: every
+    rank returns the same grid and stats (counts and energies summed over
+    the ranks; ``tile_widths`` stays the rank's own), ``stats["devices"]``
+    is the world size, and ``sharding.rank_stats`` adds every rank's tile
+    widths, busy seconds and steps.  The caller writes and prints on rank 0
+    only (``cli run``).
+
+    ``profile_dir`` records the Tracing phase with ``torch.profiler`` and
+    exports it there as a Chrome trace (``trace_rank<r>.json``); a profiler
+    that fails raises."""
     device = torch.device(device) if device is not None else default_device()
+    mesh = sh.make_mesh(group)
     segmented = cache_dir is not None
     if with_cbet:
-        check_cbet_config(cfg)          # refuse before the trace runs
+        check_cbet_config(cfg, mesh.world)      # refuse before the trace runs
     check_memory(cfg, device, with_cbet)
     timers = PhaseTimers(device)
 
@@ -224,37 +246,56 @@ def run(cfg: Config, *, with_cbet: bool = False, device=None,
         # on the card the on-card init (the reference's init() is device
         # code, launch_ray_XZ.cu:65-115): the state is born live-tile
         # compacted there; on the CPU the host prepare in float64 NumPy,
-        # then one upload of the live-tile state and the field table
+        # then one upload of the live-tile state and the field table; on
+        # several ranks each keeps its range of it
         ctx, state0, field4 = _traced_scene(cfg, device)
-        fn = rt.make_trace_fn(cfg, compact=segmented)
+        state0 = sh.local_state(state0, mesh, ctx.layout.rays_per_tile
+                                * cfg.tiles_per_block)
+        if mesh.world > 1 and not with_cbet:
+            # the whole state is not needed again: the CBET solve takes its
+            # beams' slots from the context, the trace's range is its own
+            ctx = dataclasses.replace(ctx, state0=state0)
+        fn = sh.make_sharded_trace_fn(cfg, mesh, compact=segmented)
 
     widths = []
-    with timers.phase("Tracing"):
-        edep_dev, state, oflow, steps = fn(field4, state0, widths)
+    with timers.phase("Tracing"), _profiled(profile_dir, device, mesh):
+        edep_dev, state, oflow, steps, local = fn(field4, state0, widths)
     with timers.phase("Combining"):
         edep = edep_dev.to("cpu", torch.float64).numpy()
-        oflow = int(oflow)
 
     rt.check_overflow(oflow, cfg)
 
-    stats = rt.trace_stats(ctx, state, state0)
+    stats = sh.reduce_trace_stats(rt.trace_stats(ctx, state, state0), mesh,
+                                  state.uray.device)
     stats["edep_total"] = float(edep.sum())
-    stats["devices"] = 1
+    stats["devices"] = mesh.world
     stats["steps_executed"] = steps
     stats["segmented"] = segmented
     stats["tile_widths"] = widths
+    stats.update(sh.rank_stats(mesh, widths, local["busy_seconds"],
+                               steps_executed=local["steps"]))
 
     cbet_result = None
     if with_cbet:
         with timers.phase("CBET"):
             cfg_c = cfg.replace(cbet_segmented=True) if segmented else cfg
-            cbet_result = cbet_solve(cfg_c, ctx, device=device)
+            cbet_result = cbet_solve(cfg_c, ctx, device=device, group=group)
 
     timings = timers.as_dict()
-    if verbose:
+    if verbose and mesh.rank == 0:
         print(timers.report(), file=sys.stderr)
     return RunResult(cfg=cfg, edep=edep, stats=stats, timings=timings,
                      cbet=cbet_result)
+
+
+def _profiled(profile_dir: str | None, device, mesh):
+    """``torch.profiler`` over a phase, exported into ``profile_dir``
+    (``utils/profiling.trace_to``), or nothing."""
+    import contextlib
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from .utils.profiling import trace_to
+    return trace_to(profile_dir, device, f"trace_rank{mesh.rank}.json")
 
 
 def _traced_scene(cfg: Config, device):
@@ -283,6 +324,7 @@ def run_resumable(cfg: Config, *, checkpoint_path: str,
     docstring says."""
     from .utils import checkpoint as ck
     del cache_dir
+    sh.single_rank_only("run_resumable")
     device = torch.device(device) if device is not None else default_device()
     if checkpoint_every < 1:
         raise ValueError(f"checkpoint_every must be >= 1, got "
@@ -358,6 +400,7 @@ def run_composed(cfg: Config, *, min_tiles: int = 0, device=None,
     ``cbet_solve_composed`` to reuse."""
     from .utils import checkpoint as ck
     del min_tiles, cache_dir
+    sh.single_rank_only("run_composed")
     device = torch.device(device) if device is not None else default_device()
     if resume and not checkpoint_path:
         raise ValueError("resume requires checkpoint_path")

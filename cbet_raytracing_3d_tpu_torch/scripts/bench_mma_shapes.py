@@ -3,12 +3,11 @@ of the JAX package's ``scripts/bench_mxu_shapes.py``, on one NVIDIA card.
 
     python -m cbet_raytracing_3d_tpu_torch.scripts.bench_mma_shapes
 
-For each shape and kernel (the wgmma + TMA probe, then the earlier
-``mma.sync`` kernel): one warm-up launch, then the fastest of 3 launches
-timed with CUDA events; each launch computes ``REPS`` products ``GRID``
-times (``ops/mma_probe.py``).  Prints the probe's microseconds per product,
-TFLOP/s and share of the card's dense bf16 peak (989 TFLOP/s), the earlier
-kernel's milliseconds and the bound, with the card's name and power limit
+For each shape: one warm-up launch of the probe (wgmma + TMA), then the
+fastest of 3 launches timed with CUDA events; each launch computes ``REPS``
+products ``GRID`` times (``ops/mma_probe.py``).  Prints the microseconds per
+product, TFLOP/s and share of the card's dense bf16 peak (989 TFLOP/s), the
+milliseconds per launch and the bound, with the card's name and power limit
 from ``nvidia-smi``.  Exits non-zero without a CUDA device.
 """
 
@@ -70,15 +69,12 @@ def main() -> int:
     for label, m, k, n, tr in mp.SHAPES:
         a, b = operands(m, k, n, tr, dev)
         secs = time_launch(lambda: mp.mma_probe(a, b, mp.REPS, tr, mp.GRID))
-        old = time_launch(lambda: mp._launch(a, b, mp.REPS, tr, mp.GRID,
-                                             variant="wmma"))
         per_mm = secs / (mp.GRID * mp.REPS)
         rate = 2 * m * k * n / per_mm
         print(f"{label:42s} {per_mm * 1e6:8.3f} us/mm  "
               f"{2 * m * k * n / 1e6:6.1f} MF -> {rate / 1e12:7.2f} TFLOP/s "
               f"= {100 * rate / mp.PEAK_BF16:5.1f}% of bf16 peak; "
-              f"{secs * 1e3:.4f} ms per launch, mma.sync kernel "
-              f"{old * 1e3:.4f} ms, bound "
+              f"{secs * 1e3:.4f} ms per launch, bound "
               f"{mp.bound_seconds(m, k, n) * 1e3:.4f} ms", flush=True)
     return 0
 

@@ -12,6 +12,9 @@ unprofiled median, the kernels that took most of it and the package's own
 kernels (``csrc/``), and the host's aten operator count.  The rays are initialized on the card
 (``prepare_device``); the CBET trace is the kernel_cell solver's trace at
 zero gain.  Exits non-zero without a CUDA device.
+
+The profiler is ``utils/profiling.py``'s, as ``runner.run(profile_dir=...)``
+(``cli run --profile-dir``) uses it.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from ..config import Config
 from ..models import cbet
 from ..models import raytracer as rt
+from ..utils.profiling import activities
 from .bench_mma_shapes import card_line
 
 
@@ -49,9 +53,7 @@ def profile(fn, walls: list, top: int = 6) -> dict:
     """The device time of one profiled call of ``fn``: busy seconds, the
     idle share against the median of ``walls``, and the ``top`` kernels."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=activities()) as prof:
         fn()
         torch.cuda.synchronize()
     # the device's own events (kernels, copies): the host operators that

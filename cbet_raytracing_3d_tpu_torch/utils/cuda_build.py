@@ -6,14 +6,18 @@ include) have a plain C interface.  ``nvcc`` compiles each source for Hopper
 them into one shared library under ``_build/`` (a directory that git
 ignores) at first use; the library is loaded with ``ctypes``.  The file name
 carries a hash of the sources, headers and flags, so an edited source is
-rebuilt and never served from a stale build.
+rebuilt and never served from a stale build.  Processes that build at
+once (the ranks of a sharded run on one machine) take turns on a lock file
+beside the library: the first builds, the others find its library.
 
 A failed build or load raises: there is no fallback for a kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -61,13 +65,32 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libcbet_kernels_{h.hexdigest()[:16]}.so")
 
 
+@contextlib.contextmanager
+def _build_lock():
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".build.lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(force: bool = False) -> str:
     """Compile the kernels if their library is missing (or ``force``);
     return the library path.  One ``nvcc -c`` per source, all started
-    together, then one link.  Raises with nvcc's output on failure."""
+    together, then one link, under the build lock.  Raises with nvcc's
+    output on failure."""
     path = library_path()
     if os.path.exists(path) and not force:
         return path
+    with _build_lock():
+        if os.path.exists(path) and not force:
+            return path             # another process built it meanwhile
+        return _compile(path)
+
+
+def _compile(path: str) -> str:
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
@@ -146,9 +169,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     # (a, b, out, m, k, n, reps, transpose_lhs, run, resident, grid, stream)
     lib.cbet_mma_probe_bf16.argtypes = [p, p, p] + [i] * 8 + [p]
     lib.cbet_mma_probe_bf16.restype = ctypes.c_int
-    # (a, b, out, m, k, n, reps, transpose_lhs, grid, stream)
-    lib.cbet_mma_probe_wmma_bf16.argtypes = [p, p, p, i, i, i, i, i, i, p]
-    lib.cbet_mma_probe_wmma_bf16.restype = ctypes.c_int
     lib.cbet_mma_probe_ring_slices.argtypes = []
     lib.cbet_mma_probe_ring_slices.restype = ctypes.c_int
     lib.cbet_box_default_nodes.argtypes = []

@@ -17,6 +17,7 @@ Covers the reference's two output paths:
 from __future__ import annotations
 
 import io
+import json
 
 import numpy as np
 
@@ -79,6 +80,15 @@ def edep_box_average(cfg: Config, edep_padded: np.ndarray) -> np.ndarray:
     return box_average27(edep_padded)
 
 
+def _stat_array(v) -> np.ndarray:
+    """A stat as an npz array; a ragged list (the per-rank tile widths of a
+    sharded run) as its JSON text."""
+    try:
+        return np.asarray(v)
+    except ValueError:
+        return np.asarray(json.dumps(v))
+
+
 def save_npz(path: str, cfg: Config, edep_padded: np.ndarray,
              stats: dict | None = None, extras: dict | None = None) -> None:
     x, y, z = coordinate_meshes(cfg)
@@ -86,7 +96,7 @@ def save_npz(path: str, cfg: Config, edep_padded: np.ndarray,
         path, edep=edep_padded, edepavg=edep_box_average(cfg, edep_padded),
         coord_x=x, coord_y=y, coord_z=z,
         **(extras or {}),
-        **({f"stat_{k}": v for k, v in (stats or {}).items()}))
+        **({f"stat_{k}": _stat_array(v) for k, v in (stats or {}).items()}))
 
 
 def save_hdf5(path: str, cfg: Config, edep_padded: np.ndarray) -> None:

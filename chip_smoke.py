@@ -91,10 +91,9 @@ Phases (one line each; any failure exits non-zero before the last line):
    of phases 9/10, edep and intensity within max(1e-6, 2x phase 13's drift),
    K2/K4 launches = windows; f64 kernel_cell <= 1e-10; seeded solves
    compacted and uncompacted, median of 3 in turns.
-17. K6, the tensor-core probe (wgmma + TMA), against its plain version and
-   the earlier mma.sync kernel at the six shapes of
-   ``scripts/bench_mxu_shapes.py`` (rel-L2 <= 1e-5), timed in turns with
-   that kernel and beside ``torch.matmul`` in bf16; the drift and time per
+17. K6, the tensor-core probe (wgmma + TMA), against its plain version at
+   the six shapes of ``scripts/bench_mxu_shapes.py`` (rel-L2 <= 1e-5), timed
+   beside ``torch.matmul`` in bf16; the drift and time per
    chain length; ``bench_mma_shapes`` in this process (its launches) and
    as a subprocess (rc 0).
 18. the resumable OMEGA trace: ``runner.run_composed`` uninterrupted against
@@ -109,6 +108,27 @@ Phases (one line each; any failure exits non-zero before the last line):
    launch, the accounting kept); four serial beam groups against one;
    K2 launches = windows x groups, K3 = iterations; then ``cli run
    --composed --cbet`` with both checkpoints as a subprocess (rc 0).
+20. the sharded trace: ``cli run`` under ``torchrun --nproc-per-node 1``
+   (NCCL; the group path at one rank) against phase 15's compacted grid;
+   then the OMEGA trace through ``runner.run`` on 2 and 4 gloo ranks that
+   share the card (spawned, joined, exit codes checked), plain and compacted
+   per rank, f32 and f64: f64 <= 1e-12 rel-L2 from phase 5's f64 grid, f32
+   <= 1e-5 from phases 5 and 15, every rank the same grid, ``trace_stats``
+   counts equal, K1 launches per rank = that rank's windows; each rank's
+   tile widths, busy seconds and slowest/mean.
+21. the beam-sharded OMEGA solve on 2 gloo ranks (30 beams each): kernel_cell
+   through ``runner.run``, f32: phase 10's 5 iterations, history within 1e-3
+   of phase 10, edep and intensity within phase 16's bar; K3 launched only in its
+   ``b_out`` form (once per iteration per rank), K2 and K4 "cell" per window
+   of the rank's traces, K1 per window of its uncoupled trace; lookup with
+   the gain table sharded and replicated (the rows bit-equal, the solves
+   within the drift); f64 kernel_cell <= 1e-10 of phase 10's f64.  Then K3's
+   ``b_out`` form at 30 and 15 rows against its plain version and the pair
+   kernel's rows, timed in turns with the pair kernel, beside its bound.
+22. diagnostics: ``cli track --dtype float64`` on the card against the
+   port's CPU track of the same pairs (cells identical, positions and
+   energies within 1e-12); ``cli run --profile-dir``: the trace names K1's
+   kernel.
 
 Phases 15, 16, 18 and 19 print their peak device memory beside
 ``runner.estimate_device_bytes``; 15, 18 and 19 fail when a peak exceeds the
@@ -125,6 +145,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -141,6 +162,8 @@ CBET_TOTAL = 1.6515210646281257e18
 CBET_HISTORY = (0.30723, 0.12011, 0.05411, 0.00817, 0.00211)
 CONFIG1_GOLDEN = os.path.join(REPO, "tests", "golden", "config1_oracle.npz")
 SEED = 20261016
+# the card every spawned rank of phases 20-21 runs on (gloo ranks share it)
+RANK_DEVICE = "cuda:0"
 
 
 def say(phase: str, msg: str) -> None:
@@ -308,6 +331,17 @@ DEPOSIT_OPS = 44
 # form samples eight corners (16 more); the gain-only forms skip the adds
 GAIN_STEP_OPS = 6
 TRI_SAMPLE_OPS = 16
+
+
+def k3_ops(nbeams: int, rows: int) -> int:
+    """Float32 operations per node of K3 on ``rows`` output rows of the
+    solver's antisymmetric ``pair_u`` (a rank's rows of the beam-sharded
+    gain; all of them for the pair kernel): each pair a < b inside the rows
+    once at 16 (eta 5, the resonance 7 with the division as one, and a
+    product and a sum for each of the two beams), each pair with a partner
+    outside them at 14 (one product and sum), no diagonal (its coupling is
+    zero), then G = sum * pre once a row."""
+    return 16 * (rows * (rows - 1) // 2) + 14 * rows * (nbeams - rows) + rows
 
 
 def bound(nbytes: float, nops: float, peak: float) -> dict:
@@ -649,8 +683,7 @@ def main() -> int:
                 ("K4", gdep, "LAUNCHES"),
                 ("K4 tri", gdep, "TRI_LAUNCHES"),
                 ("K4 gain-only", gdep, "GAIN_ONLY_LAUNCHES"),
-                ("K6", mp, "LAUNCHES"),
-                ("K6 mma.sync", mp, "WMMA_LAUNCHES"))
+                ("K6", mp, "LAUNCHES"))
 
     def zero_counts():
         for _, mod, attr in counters:
@@ -879,6 +912,22 @@ def main() -> int:
                               zero_counts, read_counts, smi):
         say("19 composed-cbet", line)
 
+    # 20. the sharded trace: torchrun on NCCL at one rank, gloo ranks
+    for line in sharded_trace(cfg, res, exact, seg15, drift, smi):
+        say("20 sharded-trace", line)
+
+    # 21. the beam-sharded solve on two gloo ranks; K3 b_out timed
+    rows21, n21 = sharded_solve(cfg, {
+        "kernel_cell": k32, "kernel_cell_f64": k64, "lookup": c32},
+        n13["drift"], smi)
+    rows_b, kern21 = k3_b_out(cfg, ctx, dev, np.random.default_rng(SEED + 21))
+    for line in rows21 + rows_b:
+        say("21 sharded-solve", line)
+
+    # 22. diagnostics: the tracker and the profiler on the card
+    for line in diagnostics(smi):
+        say("22 diagnostics", line)
+
     src = f"{PKG}/csrc"
     kernels = [
         {"name": "deposit", "route": "cuda", "source": f"{src}/deposit.cu",
@@ -910,6 +959,14 @@ def main() -> int:
         {"name": "mma_probe", "route": "cuda", "source": f"{src}/mma_probe.cu",
          "replaces": "scripts/bench_mxu_shapes.py:21", "launches": n17,
          **kern17},
+        # the b_out form on the beam-sharded solve's path (phase 21, both
+        # ranks' launches), 30 rows; the 15 rows of four ranks beside it
+        {"name": "gain (b_out, 30 rows)", "route": "cuda",
+         "source": f"{src}/gain.cu",
+         "replaces": "cbet_raytracing_3d_tpu/ops/pallas_gain.py:58",
+         "launches": n21, **kern21[30],
+         "rows_15": {k: kern21[15][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -1154,10 +1211,7 @@ def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
                     f"{int((got != every).sum())} values differ, max "
                     f"{float((got - every).abs().max())}; vs its plain "
                     f"version {err_pp}")
-            # per pair a < b and node: eta 5, the resonance 7 with the
-            # division as one, and a product and a sum for each of the two
-            # beams (4): 16 float32 operations; then G = sum * pre
-            kb = bound(nbytes, (16 * (B * (B - 1) // 2) + B) * P, PEAK_F32)
+            kb = bound(nbytes, k3_ops(B, B) * P, PEAK_F32)
             # every (b, b'): eta 5, the resonance 7, the product and sum 2
             kb_all = bound(nbytes, 14 * B * B * P, PEAK_F32)
             ms = in_turns({
@@ -1182,7 +1236,7 @@ def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
                      f"{kb_all['bound_ms']:.4f} ms)")
             del every, plain_pairs
         else:
-            kb = bound(nbytes, 14 * bo * B * P, PEAK_F32)
+            kb = bound(nbytes, k3_ops(B, bo) * P, PEAK_F32)
             ms = cuda_ms(lambda: gop.gain(pu_b, rp, inten), 10)
             kern["K3"]["b_out_ms"] = ms
             line += (f"; {ms:.4f} ms per call, bound {kb['bound_ms']:.4f} ms"
@@ -1815,11 +1869,10 @@ def compacted_cbet(cfg, dev, ref, drift, zero_counts, read_counts, smi):
 
 def mma_probe_phase(dev, zero_counts, read_counts, smi):
     """Phase 17: K6 (wgmma + TMA) against its plain version at the six
-    shapes, timed in turns with the earlier mma.sync kernel and beside
-    ``torch.matmul`` in bf16; the drift and the time per chain length; then
-    the probe's entry point in this process (its launches) and once as a
-    subprocess.  Returns (lines, the JSON fields of the first shape,
-    launches)."""
+    shapes, timed beside ``torch.matmul`` in bf16; the drift and the time
+    per chain length; then the probe's entry point in this process (its
+    launches) and once as a subprocess.  Returns (lines, the JSON fields of
+    the first shape, launches)."""
     import torch
     from cbet_raytracing_3d_tpu_torch.ops import mma_probe as mp
     from cbet_raytracing_3d_tpu_torch.scripts import bench_mma_shapes as bm
@@ -1830,27 +1883,12 @@ def mma_probe_phase(dev, zero_counts, read_counts, smi):
         a, b = bm.operands(m, k, n, tr, dev)
         got = mp.mma_probe(a, b, mp.REPS, tr, mp.GRID)
         want = mp.mma_probe_reference(a, b, mp.REPS, tr, mp.GRID)
-        old = mp._launch(a, b, mp.REPS, tr, mp.GRID, variant="wmma")
         torch.cuda.synchronize()
         err = rel_l2(got.double().cpu(), want.double().cpu())
-        err_old = rel_l2(got.double().cpu(), old.double().cpu())
         mx = float((got.double() - want.double()).abs().max())
-        if not (err <= 1e-5 and err_old <= 1e-5
-                and bool(torch.isfinite(got).all())):
-            raise RuntimeError(f"K6 vs plain failed at {label}: rel-L2 {err}"
-                               f" (vs the mma.sync kernel {err_old})")
-
-        def run_new():
-            return mp.mma_probe(a, b, mp.REPS, tr, mp.GRID)
-
-        def run_old():
-            return mp._launch(a, b, mp.REPS, tr, mp.GRID, variant="wmma")
-
-        # in turns: new, old, old, new
-        t_new, t_old = [cuda_ms(run_new, 5)], [cuda_ms(run_old, 5)]
-        t_old.append(cuda_ms(run_old, 5))
-        t_new.append(cuda_ms(run_new, 5))
-        ms, ms_old = min(t_new), min(t_old)
+        if not (err <= 1e-5 and bool(torch.isfinite(got).all())):
+            raise RuntimeError(f"K6 vs plain failed at {label}: rel-L2 {err}")
+        ms = cuda_ms(lambda: mp.mma_probe(a, b, mp.REPS, tr, mp.GRID), 5)
         ms_p = cuda_ms(lambda: mp.mma_probe_reference(a, b, mp.REPS, tr), 5)
         a_op = a.t() if tr else a
         # the library's time for the launch's products: bf16 products, each
@@ -1864,21 +1902,17 @@ def mma_probe_phase(dev, zero_counts, read_counts, smi):
         kb = bound(nbytes, ops, mp.PEAK_BF16)
         rate = ops / (ms / 1e3)
         lines.append(
-            f"{label}: rel-L2 {err:.3e} (<= 1e-5; vs the mma.sync kernel "
-            f"{err_old:.3e}); {ms:.4f} ms per launch of "
-            f"{products} products (turns {t_new[0]:.4f} / {t_new[1]:.4f}) = "
-            f"{1e3 * ms / products:.4f} us per product, "
+            f"{label}: rel-L2 {err:.3e} (<= 1e-5); {ms:.4f} ms per launch of "
+            f"{products} products = {1e3 * ms / products:.4f} us per product, "
             f"{rate / 1e12:.1f} TFLOP/s = {100 * rate / mp.PEAK_BF16:.1f} % "
-            f"of 989; mma.sync kernel {ms_old:.4f} ms (turns "
-            f"{t_old[0]:.4f} / {t_old[1]:.4f}); plain {ms_p:.4f} ms (one "
-            f"product, summed); "
+            f"of 989; plain {ms_p:.4f} ms (one product, summed); "
             f"torch.matmul {1e3 * lib / products:.4f} us per product queued "
             f"({1e3 * lib_host / products:.4f} us as launched) = {lib:.4f} ms "
             f"for the launch's products; bound {kb['bound_ms']:.4f}"
             f" ms ({kb['bound_by']}); card {smi}")
         if kern is None:
             kern = {"max_abs_err": mx, "ms": ms, "plain_ms": ms_p, **kb,
-                    "library_ms": lib, "wmma_ms": ms_old}
+                    "library_ms": lib}
             # the drift and the time per chain length at the longest k
             parts = []
             for slices, resident in ((1, True), (2, True), (4, True),
@@ -1896,28 +1930,24 @@ def mma_probe_phase(dev, zero_counts, read_counts, smi):
                              f"{e:.2e}, {t:.4f} ms")
             lines.append(f"chain lengths at {label} (rel-L2 vs plain, ms per "
                          "launch): " + "; ".join(parts))
-    # the public wrapper takes the wgmma kernel and no other
     zero_counts()
     mp.mma_probe(a, b, mp.REPS, tr, mp.GRID)
-    n_pub = read_counts()
-    if (n_pub["K6"], n_pub["K6 mma.sync"]) != (1, 0):
-        raise RuntimeError(f"mma_probe() launched {n_pub['K6']} wgmma and "
-                           f"{n_pub['K6 mma.sync']} mma.sync kernels")
+    if read_counts()["K6"] != 1:
+        raise RuntimeError(f"mma_probe() launched {read_counts()['K6']} "
+                           "kernels")
     zero_counts()
     if bm.main() != 0:
         raise RuntimeError("bench_mma_shapes failed in process")
-    n17, n17_old = read_counts()["K6"], read_counts()["K6 mma.sync"]
-    if not n17 == n17_old == 4 * len(mp.SHAPES):
-        raise RuntimeError(f"bench_mma_shapes launched K6 {n17} times and "
-                           f"the mma.sync kernel {n17_old} times")
+    n17 = read_counts()["K6"]
+    if n17 != 4 * len(mp.SHAPES):
+        raise RuntimeError(f"bench_mma_shapes launched K6 {n17} times")
     proc = subprocess.run(
         [sys.executable, "-m", f"{PKG}.scripts.bench_mma_shapes"],
         capture_output=True, text=True, timeout=300, cwd=REPO)
     if proc.returncode != 0:
         raise RuntimeError(f"bench_mma_shapes subprocess rc "
                            f"{proc.returncode}: {proc.stderr[-2000:]}")
-    lines.append(f"bench_mma_shapes: {n17} K6 launches (all wgmma; the "
-                 f"mma.sync kernel {n17_old}) in process; as a "
+    lines.append(f"bench_mma_shapes: {n17} K6 launches in process; as a "
                  f"subprocess rc 0, {len(proc.stdout.splitlines())} lines")
     return lines, kern, n17
 
@@ -2170,6 +2200,466 @@ def composed_cbet(cfg, dev, ctx, ref, drift, zero_counts, read_counts, smi):
         raise RuntimeError("composed CBET failed: "
                            f"{[k for k, v in checks.items() if not v]}; "
                            + " | ".join(lines) + proc.stderr[-2000:])
+    return lines
+
+
+def _rank_device(device: str):
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def _trace_rank(rank, world, cfg, dtypes, device):
+    """Phase 20 on one gloo rank (every rank on ``device``): ``runner.run``
+    of the trace, plain and compacted, for each dtype, with the rank's K1
+    launches.  The grid comes back from rank 0, a digest from every rank."""
+    import hashlib
+    from cbet_raytracing_3d_tpu_torch.ops import deposit as dep
+    from cbet_raytracing_3d_tpu_torch.runner import run
+    dev = _rank_device(device)
+    out = {}
+    for dt in dtypes:
+        for tag, cache in (("plain", None),
+                           ("compacted", os.path.join(REPO, ".cbet_cache"))):
+            dep.LAUNCHES = 0
+            r = run(cfg.replace(dtype=dt), device=dev, verbose=False,
+                    cache_dir=cache)
+            out[dt, tag] = {
+                "edep": r.edep if rank == 0 else None,
+                "digest": hashlib.sha256(r.edep.tobytes()).hexdigest(),
+                "stats": r.stats, "k1": dep.LAUNCHES}
+    return out
+
+
+def sharded_trace(cfg, res, exact, seg15, drift, smi):
+    """Phase 20: ``cli run`` under ``torchrun --nproc-per-node 1`` (NCCL, the
+    group path at one rank) against phase 15's compacted grid; then the
+    OMEGA trace on 2 and 4 gloo ranks sharing the card, plain and compacted
+    per rank, f64 against phase 5's f64 grid, f32 against phases 5 and 15,
+    ``trace_stats`` against theirs, K1 launches per rank against the rank's
+    windows; each rank's tile widths and busy seconds.  Returns lines."""
+    lines = [torchrun_one_rank(seg15, drift)]
+    lines += gloo_traces(cfg, res, exact, seg15, smi)
+    return lines
+
+
+def torchrun_one_rank(seg15, drift):
+    """``cli run`` (the compacted trace) under ``torchrun --nproc-per-node
+    1``: NCCL on the card, held to phase 15's compacted grid."""
+    work = os.path.join(REPO, "out", "chip_smoke_sharded")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", f"{PKG}.cli", "run", "--out-dir",
+         work, "--formats", "npz,json", "--quiet"],
+        capture_output=True, text=True, timeout=600, cwd=REPO)
+    t_cli = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise RuntimeError(f"torchrun cli run rc {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+    with np.load(os.path.join(work, "edep.npz")) as z:
+        e1 = z["edep"]
+    with open(os.path.join(work, "edep.json")) as f:
+        st1 = json.load(f)["stats"]
+    shutil.rmtree(work, ignore_errors=True)
+    d1 = rel_l2(e1, seg15.edep)
+    keys = ("rays_launched", "rays_alive_at_end", "rays_terminated")
+    if not (d1 <= 2 * drift and st1["devices"] == 1
+            and st1["dist_backend"] == "nccl" and st1["segmented"]
+            and all(st1[k] == seg15.stats[k] for k in keys)):
+        raise RuntimeError(f"torchrun (NCCL, 1 rank) cli run: rel-L2 {d1} "
+                           f"from phase 15 (bar {2 * drift}), stats {st1}")
+    return (f"torchrun --nproc-per-node 1 cli run (NCCL, cuda:0, "
+            f"compacted): rel-L2 {d1:.3e} from phase 15's grid (bar "
+            f"{2 * drift:.2e}), counts equal, {t_cli:.1f} s as a subprocess")
+
+
+def gloo_traces(cfg, res, exact, seg15, smi):
+    """Phase 20's gloo part: the trace on 2 and 4 ranks sharing the card."""
+    from cbet_raytracing_3d_tpu_torch.parallel.multihost import spawn_ranks
+
+    batch = cfg.deposit_batch_steps
+    keys = ("rays_launched", "rays_alive_at_end", "rays_terminated")
+    lines = []
+    want = {("float64", "plain"): exact, ("float64", "compacted"): exact,
+            ("float32", "plain"): res, ("float32", "compacted"): seg15}
+    for world in (2, 4):
+        t = time.perf_counter()
+        ranks = spawn_ranks(_trace_rank, world, cfg, ("float32", "float64"),
+                            RANK_DEVICE, timeout=600)
+        secs = time.perf_counter() - t
+        for (dt, tag), ref in want.items():
+            got = [r[dt, tag] for r in ranks]
+            st = got[0]["stats"]
+            err = rel_l2(got[0]["edep"], ref.edep)
+            bar = 1e-12 if dt == "float64" else 1e-5
+            # f32 plain also against the compacted single-rank grid
+            err15 = rel_l2(got[0]["edep"], seg15.edep)
+            steps = st["rank_steps_executed"]
+            checks = {
+                f"rel-L2 <= {bar:g}": err <= bar,
+                "f32 vs phase 15 <= 1e-5": dt == "float64" or err15 <= 1e-5,
+                "every rank the same grid": len({g["digest"]
+                                                 for g in got}) == 1,
+                "counts equal": all(st[k] == ref.stats[k] for k in keys),
+                "energies to rounding": all(
+                    abs(st[k] / ref.stats[k] - 1) < 1e-12
+                    for k in ("energy_launched", "energy_absorbed")),
+                "devices, backend": st["devices"] == world
+                and st["dist_backend"] == "gloo",
+                "K1 per rank == its windows": all(
+                    g["k1"] * batch == steps[r] for r, g in enumerate(got))
+                and sum(g["k1"] for g in got) > 0,
+                "steps = the slowest rank's": st["steps_executed"]
+                == max(steps) == ref.stats["steps_executed"],
+            }
+            if not all(checks.values()):
+                raise RuntimeError(
+                    f"sharded trace W={world} {dt} {tag} failed: "
+                    f"{[k for k, v in checks.items() if not v]}; rel-L2 "
+                    f"{err}, stats {st}, K1 {[g['k1'] for g in got]}")
+            busy = st["rank_busy_seconds"]
+            lines.append(
+                f"W={world} gloo on cuda:0, {dt} {tag}: rel-L2 {err:.3e} "
+                f"(bar {bar:g}"
+                + (f"; vs phase 15 {err15:.3e}" if dt == "float32" else "")
+                + "), counts equal, "
+                f"K1 per rank {[g['k1'] for g in got]} = steps / {batch} "
+                f"{steps}; tile widths per rank "
+                f"{st['rank_tile_widths'] if tag == 'compacted' else '-'}; "
+                f"busy s {[round(b, 6) for b in busy]}, slowest/mean "
+                f"{st['busy_slowest_over_mean']:.4f}; collectives "
+                f"{st['collective_seconds']:.6f} s (gloo through the host on "
+                f"a shared card)")
+        lines.append(f"W={world}: {secs:.1f} s for the spawn and 4 runs per "
+                     f"rank; card {smi}")
+    return lines
+
+
+def _solve_rank(rank, world, look, device, fields_dir=None):
+    """Phase 21 on one gloo rank (every rank on ``device``): the
+    kernel_cell solve of ``look``'s scene through ``runner.run`` with the
+    main path's launch counts; lookup with the gain table sharded and
+    replicated, and the two tables' rows on one intensity; the f64
+    kernel_cell solve on an f64 on-card init (no uncoupled trace: only its
+    CBET result is compared).  The seconds of each step, synchronized.
+    Rank 0 returns the solves' fields, as ``.npy`` files in ``fields_dir``
+    where one is given."""
+    import hashlib
+    import pickle
+    import torch
+    from cbet_raytracing_3d_tpu_torch.models import cbet
+    from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
+    from cbet_raytracing_3d_tpu_torch.ops import deposit as dep
+    from cbet_raytracing_3d_tpu_torch.ops import gain as gop
+    from cbet_raytracing_3d_tpu_torch.ops import gain_deposit as gdep
+    from cbet_raytracing_3d_tpu_torch.parallel import sharding as sh
+    from cbet_raytracing_3d_tpu_torch.runner import run
+    dev = _rank_device(device)
+    counters = {"K1": (dep, "LAUNCHES"), "K2": (dep, "GROUPED_LAUNCHES"),
+                "K3": (gop, "LAUNCHES"), "K3 pairs": (gop, "PAIR_LAUNCHES"),
+                "K3 b_out": (gop, "B_OUT_LAUNCHES"),
+                "K4": (gdep, "LAUNCHES"), "K4 tri": (gdep, "TRI_LAUNCHES"),
+                "K4 gain-only": (gdep, "GAIN_ONLY_LAUNCHES")}
+    entered = time.time()
+    seconds = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        clock[0] = now
+
+    held = {}
+
+    def summary(res, name):
+        if rank == 0:
+            held[name] = res
+        return {"edep": None, "intensity": None,
+                "digest": hashlib.sha256(res.edep.tobytes()
+                                         + res.intensity.tobytes()
+                                         ).hexdigest(),
+                "history": res.history, "iterations": res.iterations,
+                "converged": res.converged, "stats": res.stats}
+
+    cfg = look.replace(cbet_gain_mode="kernel_cell")
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    r = run(cfg, with_cbet=True, device=dev, verbose=False)
+    out = {"counts": {k: getattr(m, a) for k, (m, a) in counters.items()},
+           "kc": summary(r.cbet, "kc"), "trace_stats": r.stats,
+           "cbet_seconds": r.timings["CBET"]}
+    lap("kernel_cell f32 (runner.run: init, trace, solve)")
+    ctx = rt.prepare_device(look, device=dev)
+    lap("f32 init")
+    for shard in (True, False):
+        res = cbet.cbet_solve(look.replace(cbet_gain_sharded=shard), ctx, dev)
+        out[f"lookup_{shard}"] = summary(res, f"lookup_{shard}")
+        lap(f"lookup, gain sharded {shard}")
+    # the sharded (K3 b_out) and the replicated (pair kernel) table's rows
+    # of this rank on one intensity: the lookup solve's, this rank's rows
+    mesh = sh.make_mesh()
+    b0, nl = sh.rank_beams(look.nbeams, mesh.world)[mesh.rank]
+    inten = torch.as_tensor(res.intensity.reshape(look.nbeams, -1)[b0:b0 + nl],
+                            dtype=torch.float32, device=dev)
+    rows = [cbet.make_gain_fn(look, ctx, dev, None, mesh, s)(inten)
+            for s in (True, False)]
+    out["rows_equal"] = bool(torch.equal(rows[0], rows[1]))
+    out["rows_max"] = float(rows[0].abs().max())
+    del ctx, rows, inten
+    lap("gain rows, sharded and replicated")
+    c64 = cfg.replace(dtype="float64")
+    ctx64 = rt.prepare_device(c64, device=dev)
+    lap("f64 init")
+    out["kc64"] = summary(cbet.cbet_solve(c64, ctx64, dev), "kc64")
+    lap("kernel_cell f64 solve")
+    # what the rank still holds when its body returns: the cached solvers on
+    # the card; then rank 0's fields, which go back to the parent through
+    # files (np.save) where ``fields_dir`` is given, else through the queue
+    cbet._SOLVER_CACHE.clear()
+    del ctx64
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    lap("free the solvers")
+    for name, res in held.items():
+        for k in ("edep", "intensity"):
+            out[name][k] = getattr(res, k)
+            if fields_dir is not None:
+                out[name][k] = os.path.join(fields_dir, f"{name}_{k}.npy")
+                np.save(out[name][k], getattr(res, k))
+    held.clear()
+    lap("write the fields")
+    out["pickled_bytes"] = len(pickle.dumps(out, pickle.HIGHEST_PROTOCOL))
+    lap("pickle the result")
+    out["seconds"] = seconds
+    out["entered"], out["left"] = entered, time.time()
+    return out
+
+
+def k3_b_out(cfg, ctx, dev, rng, rows_list=(30, 15)):
+    """K3's ``b_out`` form (the all-pairs kernel on a rank's rows of
+    ``pair_u``, the partner sum over all 60 beams) at the row counts of 2
+    and 4 ranks, against its plain version and the pair kernel's rows, timed
+    in turns with the pair kernel over all beams; CUDA events.  Returns
+    (lines, {rows: JSON fields})."""
+    import torch
+    from cbet_raytracing_3d_tpu_torch.ops import gain as gop
+    pu, rp, inten = gain_case(rng, cfg, ctx, dev)
+    B, P = inten.shape
+    full = gop.gain(pu, rp, inten)
+    lines, kern = [], {}
+    for bo in rows_list:
+        pu_b = pu[:bo].contiguous()
+        got = gop.gain(pu_b, rp, inten)
+        want = gop.gain_reference(pu_b, rp, inten)
+        torch.cuda.synchronize()
+        g64, w64 = got.double(), want.double()
+        err = float(torch.linalg.norm(g64 - w64) / torch.linalg.norm(w64))
+        mx = float((g64 - w64).abs().max())
+        same = bool(torch.equal(got, full[:bo]))
+        if not (err < 1e-5 and same and bool(torch.isfinite(got).all())):
+            raise RuntimeError(f"K3 b_out {bo} rows: rel-L2 {err} vs plain, "
+                               f"equal to the pair kernel's rows {same}")
+        kb = bound(4 * (pu_b.numel() + rp.numel() + (B + bo) * P),
+                   k3_ops(B, bo) * P, PEAK_F32)
+        ms = in_turns({"b_out": lambda: gop.gain(pu_b, rp, inten),
+                       "pairs": lambda: gop.gain(pu, rp, inten)}, 10)
+        ms_p = cuda_ms(lambda: gop.gain_reference(pu_b, rp, inten), 1)
+        kern[bo] = {"max_abs_err": mx, "ms": ms["b_out"], "plain_ms": ms_p,
+                    **kb, "library_ms": None, "pair_kernel_ms": ms["pairs"]}
+        lines.append(
+            f"K3 b_out {bo} rows x {B} partners x {P} nodes: rel-L2 {err:.3e}"
+            f" vs plain, bit-equal to the pair kernel's rows; "
+            f"{ms['b_out']:.4f} ms, pair kernel over all {B} beams {ms['pairs']:.4f} ms (in "
+            f"turns), plain {ms_p:.4f} ms; bound {kb['bound_ms']:.4f} ms "
+            f"({kb['bound_by']})")
+    return lines, kern
+
+
+def sharded_solve(cfg, ref, drift, smi):
+    """Phase 21: the OMEGA kernel_cell solve on 2 gloo ranks sharing the
+    card (30 beams each) through ``runner.run``, f32 and f64, against
+    phase 10's; lookup with the gain table sharded and replicated.  Returns
+    (lines, the K3 b_out launches of the kernel_cell run)."""
+    from cbet_raytracing_3d_tpu_torch.parallel.multihost import spawn_ranks
+    from cbet_raytracing_3d_tpu_torch.parallel.sharding import rank_beams
+
+    batch = cfg.deposit_batch_steps
+    bar = max(1e-6, 2 * drift)
+    work = os.path.join(REPO, "out", "chip_smoke_solve")
+    os.makedirs(work, exist_ok=True)
+    t, t_wall = time.perf_counter(), time.time()
+    ranks = spawn_ranks(_solve_rank, 2, cfg, RANK_DEVICE, work, timeout=900)
+    secs, t_got = time.perf_counter() - t, time.time()
+    t = time.perf_counter()
+    for s in ranks[0].values():
+        if isinstance(s, dict) and isinstance(s.get("edep"), str):
+            s["edep"], s["intensity"] = (np.load(s["edep"]),
+                                         np.load(s["intensity"]))
+    t_load = time.perf_counter() - t
+    shutil.rmtree(work, ignore_errors=True)
+    # the spawn's seconds outside the ranks' bodies: before (start, imports,
+    # process group) and after (pickling and passing the results, exit)
+    before = [r["entered"] - t_wall for r in ranks]
+    after = [t_got - r["left"] for r in ranks]
+    kc, k32 = ranks[0]["kc"], ref["kernel_cell"]
+    st = kc["stats"]
+    cbet_windows = [s // batch for s in st["rank_trace_steps"]]
+    trace_windows = [s // batch
+                     for s in ranks[0]["trace_stats"]["rank_steps_executed"]]
+    n = [r["counts"] for r in ranks]
+
+    def hrel(a, b):
+        return max(abs(x / y - 1) for x, y in zip(a["history"], b.history))
+
+    checks = {
+        "kernel_cell: phase 10's iterations, converged":
+            kc["iterations"] == k32.iterations and kc["converged"],
+        "history within 1e-3 of phase 10": hrel(kc, k32) < 1e-3,
+        f"edep, intensity within {bar:.1e} of phase 10":
+            rel_l2(kc["edep"], k32.edep) < bar
+            and rel_l2(kc["intensity"], k32.intensity) < bar,
+        "beam_sharded, gain sharded, whole beams a rank":
+            st["intensity_mode"] == "beam_sharded" and st["gain_sharded"]
+            and st["rank_beams"] == [n for _, n in rank_beams(cfg.nbeams, 2)]
+            and st["devices"] == 2,
+        "every rank the same result": len({r["kc"]["digest"]
+                                           for r in ranks}) == 1,
+        "K3 all b_out, one per iteration": all(
+            c["K3"] == c["K3 b_out"] == kc["iterations"] and c["K3 pairs"] == 0
+            for c in n),
+        "K2, K4 cell per window of the rank's CBET traces": all(
+            c["K2"] == c["K4"] == w > 0 for c, w in zip(n, cbet_windows)),
+        "K1 per window of the rank's uncoupled trace": all(
+            c["K1"] == w > 0 for c, w in zip(n, trace_windows)),
+        "no tri, no gain-only": all(c["K4 tri"] == c["K4 gain-only"] == 0
+                                    for c in n),
+    }
+    look_t, look_f = ranks[0]["lookup_True"], ranks[0]["lookup_False"]
+    d_look = max(rel_l2(look_t["edep"], look_f["edep"]),
+                 rel_l2(look_t["intensity"], look_f["intensity"]))
+    look_ref = ref["lookup"]
+    checks.update({
+        "gain rows: sharded == replicated, bit for bit": all(
+            r["rows_equal"] and r["rows_max"] > 0 for r in ranks),
+        "lookup sharded vs replicated within the drift": d_look < bar
+        and look_t["iterations"] == look_f["iterations"]
+        == look_ref.iterations,
+        "lookup vs phase 9 within the drift": max(
+            rel_l2(look_t["edep"], look_ref.edep),
+            rel_l2(look_t["intensity"], look_ref.intensity)) < bar,
+        "lookup stats": look_t["stats"]["gain_sharded"]
+        and not look_f["stats"]["gain_sharded"],
+    })
+    k64, ref64 = ranks[0]["kc64"], ref["kernel_cell_f64"]
+    d64 = max(rel_l2(k64["edep"], ref64.edep),
+              rel_l2(k64["intensity"], ref64.intensity))
+    checks["f64 kernel_cell within 1e-10 of phase 10"] = (
+        d64 <= 1e-10 and k64["iterations"] == ref64.iterations)
+    if not all(checks.values()):
+        raise RuntimeError(f"sharded CBET failed: "
+                           f"{[k for k, v in checks.items() if not v]}; "
+                           f"launches {n}, windows {cbet_windows}, history "
+                           f"{kc['history']}, lookup {d_look}, f64 {d64}")
+    lines = [
+        f"kernel_cell f32, W=2 gloo on cuda:0 (beams per rank "
+        f"{st['rank_beams']}): "
+        f"{kc['iterations']} iterations, history "
+        f"{[f'{h:.5f}' for h in kc['history']]} (max rel {hrel(kc, k32):.2e} "
+        f"from phase 10); edep {rel_l2(kc['edep'], k32.edep):.3e} intensity "
+        f"{rel_l2(kc['intensity'], k32.intensity):.3e} (bar {bar:.1e}); "
+        f"launches per rank {n}; CBET windows per rank {cbet_windows}; "
+        f"busy s {[round(b, 6) for b in st['rank_busy_seconds']]}, "
+        f"slowest/mean {st['busy_slowest_over_mean']:.4f}; collectives "
+        f"{st['collective_seconds']:.6f} s (gloo through the host on a shared"
+        f" card); CBET phase s {[round(r['cbet_seconds'], 6) for r in ranks]}",
+        f"lookup sharded vs replicated gain table: rows bit-equal, solves "
+        f"{d_look:.3e} apart; vs phase 9 "
+        f"{rel_l2(look_t['edep'], look_ref.edep):.3e}",
+        f"kernel_cell f64: {d64:.3e} from phase 10's f64 (bar 1e-10), "
+        f"{k64['iterations']} iterations",
+        f"seconds per step, rank by rank: "
+        + "; ".join(f"{k} {[round(r['seconds'][k], 3) for r in ranks]}"
+                    for k in ranks[0]["seconds"]),
+        f"{secs:.1f} s for the spawn and the 4 solves per rank: before the "
+        f"ranks' bodies {[round(b, 3) for b in before]} s, in them "
+        f"{[round(r['left'] - r['entered'], 3) for r in ranks]} s, after "
+        f"them {[round(a, 3) for a in after]} s (the results pickled: "
+        f"{[r['pickled_bytes'] for r in ranks]} bytes); rank 0's fields "
+        f"read back in {t_load:.3f} s; card {smi}"]
+    return lines, sum(c["K3 b_out"] for c in n)
+
+
+def diagnostics(smi):
+    """Phase 22: ``cli track`` on the card (f64) against the port's CPU
+    track of the same pairs; ``cli run --profile-dir``, whose trace must
+    name K1's kernel.  Returns lines."""
+    from cbet_raytracing_3d_tpu_torch.config import Config
+    from cbet_raytracing_3d_tpu_torch.models.tracker import (RayTrajectories,
+                                                             track_rays)
+    work = os.path.join(REPO, "out", "chip_smoke_diag")
+    beams, rays = [0, 17, 3], [9800, 4321, 0]
+    npz = os.path.join(work, "traj.npz")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.cli", "track", "--dtype", "float64",
+         "--pairs", ",".join(f"{b}:{r}" for b, r in zip(beams, rays)),
+         "--out", npz], capture_output=True, text=True, timeout=300,
+        cwd=REPO)
+    t_track = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise RuntimeError(f"cli track rc {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout)
+    card = RayTrajectories.load_npz(npz)
+    cpu = track_rays(Config(dtype="float64"), beams, rays, device="cpu")
+    m = cpu.recorded
+    d_pos = float(np.abs(card.pos[m] - cpu.pos[m]).max()
+                  / np.abs(cpu.pos[m]).max())
+    d_u = float(np.abs(card.uray[m] / cpu.uray[m] - 1).max())
+    ok = (np.array_equal(card.recorded, m)
+          and np.array_equal(card.cell[m], cpu.cell[m])
+          and d_pos <= 1e-12 and d_u <= 1e-12
+          and summary["steps"] == cpu.steps.tolist() and m.sum() > 100)
+    if not ok:
+        raise RuntimeError(f"cli track on the card vs the CPU: steps "
+                           f"{summary['steps']} / {cpu.steps.tolist()}, "
+                           f"positions {d_pos}, energies {d_u}")
+    lines = [f"cli track --dtype float64 on the card: steps "
+             f"{summary['steps']}, crossings {summary['crossings']}; against "
+             f"the CPU track: cells identical, positions {d_pos:.3e} of the "
+             f"largest, energies {d_u:.3e} relative (bars 1e-12); "
+             f"{t_track:.1f} s as a subprocess"]
+    prof = os.path.join(work, "prof")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.cli", "run", "--nbeams", "1",
+         "--rays-per-zone", "1", "--nx", "40", "--ny", "40", "--nz", "40",
+         "--out-dir", os.path.join(work, "run"), "--formats", "json",
+         "--quiet", "--profile-dir", prof], capture_output=True, text=True,
+        timeout=300, cwd=REPO)
+    t_prof = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise RuntimeError(f"cli run --profile-dir rc {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+    path = os.path.join(prof, "trace_rank0.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and "deposit" in e.get("name", "")]
+    kernels = {e.get("name", "")[:40] for e in events
+               if e.get("cat") == "kernel"}
+    if not k1:
+        raise RuntimeError(f"the profile names no K1 kernel: {kernels}")
+    lines.append(f"cli run --profile-dir: {os.path.getsize(path)} bytes, "
+                 f"{len(events)} events, {len(k1)} K1 launches "
+                 f"({k1[0]['name'][:60]}), {len(kernels)} kernel names; "
+                 f"{t_prof:.1f} s as a subprocess; card {smi}")
+    shutil.rmtree(work, ignore_errors=True)
     return lines
 
 

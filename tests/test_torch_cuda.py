@@ -620,20 +620,16 @@ def _probe_operands(m, k, n, tr, device):
 
 @pytest.mark.parametrize("shape", range(6))
 def test_mma_probe_kernel_matches_plain(cuda, shape):
-    """K6 (wgmma + TMA) against its plain version and against the earlier
-    mma.sync kernel at each of the six shapes, with its launch count."""
+    """K6 (wgmma + TMA) against its plain version at each of the six
+    shapes, with its launch count."""
     from cbet_raytracing_3d_tpu_torch.ops import mma_probe as mp
     _, m, k, n, tr = mp.SHAPES[shape]
     a, b = _probe_operands(m, k, n, tr, cuda)
-    before = (mp.LAUNCHES, mp.WMMA_LAUNCHES)
+    before = mp.LAUNCHES
     got = mp.mma_probe(a, b, mp.REPS, tr, 4)
-    # the public wrapper takes the wgmma kernel
-    assert (mp.LAUNCHES, mp.WMMA_LAUNCHES) == (before[0] + 1, before[1])
+    assert mp.LAUNCHES == before + 1
     want = mp.mma_probe_reference(a, b, mp.REPS, tr)
     assert rel_l2(got.cpu(), want.cpu()) < 1e-5
-    old = mp._launch(a, b, mp.REPS, tr, 4, variant="wmma")
-    assert (mp.LAUNCHES, mp.WMMA_LAUNCHES) == (before[0] + 1, before[1] + 1)
-    assert rel_l2(got.cpu(), old.cpu()) < 1e-5
 
 
 @pytest.mark.parametrize("tr", [False, True])
@@ -650,8 +646,6 @@ def test_mma_probe_kernel_ragged_shapes(cuda, m, k, n, tr):
     want = mp.mma_probe_reference(a, b, 3, tr).cpu()
     got = mp.mma_probe(a, b, 3, tr, 2)
     assert got.shape == (m, n) and rel_l2(got.cpu(), want) < 1e-5
-    old = mp._launch(a, b, 3, tr, 2, variant="wmma")
-    assert rel_l2(got.cpu(), old.cpu()) < 1e-5
     for slices, resident in ((1, True), (2, False), (None, False)):
         out = mp._launch(a, b, 3, tr, 2, chain_slices=slices,
                          resident=resident)
@@ -784,3 +778,55 @@ def test_cbet_solve_composed_resumes_on_card(cuda, tmp_path, groups):
     assert counts == (dep.LAUNCHES, dep.GROUPED_LAUNCHES, gop.LAUNCHES)
     assert np.array_equal(again.edep, res.edep)
     assert again.stats["rays_terminated"] == res.stats["rays_terminated"]
+
+
+# a scene whose 3 beams split 2 + 1 over two ranks
+SHARDED = dict(nbeams=3, rays_per_zone=1, nx=40, ny=40, nz=40,
+               chunk_steps=10, deposit_batch_steps=5)
+COUNTS = ("rays_launched", "rays_alive_at_end", "rays_terminated")
+
+
+def test_sharded_trace_on_card(cuda):
+    """Two gloo ranks sharing the card (``chip_smoke.py`` phase 20's rank
+    body): the f64 grid plain and compacted per rank against the one-rank
+    run, the counts equal, K1 per rank once per window of its trace."""
+    from chip_smoke import _trace_rank
+    from cbet_raytracing_3d_tpu_torch.parallel.multihost import spawn_ranks
+    from cbet_raytracing_3d_tpu_torch.runner import run
+    cfg = Config(**SHARDED)
+    ranks = spawn_ranks(_trace_rank, 2, cfg, ("float64",), "cuda:0",
+                        timeout=300)
+    want = run(cfg.replace(dtype="float64"), device=cuda, verbose=False)
+    for tag in ("plain", "compacted"):
+        got = ranks[0]["float64", tag]
+        st = got["stats"]
+        assert rel_l2(got["edep"], want.edep) < 1e-12, tag
+        assert len({r["float64", tag]["digest"] for r in ranks}) == 1
+        assert all(st[k] == want.stats[k] for k in COUNTS), tag
+        assert [r["float64", tag]["k1"] * cfg.deposit_batch_steps
+                for r in ranks] == st["rank_steps_executed"]
+        assert st["devices"] == 2 and st["dist_backend"] == "gloo"
+
+
+def test_sharded_solve_on_card(cuda):
+    """Two gloo ranks sharing the card (phase 21's rank body), 2 + 1 beams:
+    K3 only in its ``b_out`` form, one launch per iteration; the sharded
+    and the replicated gain table's rows bit-equal; the f64 kernel_cell
+    solve against the one-rank solve."""
+    from chip_smoke import _solve_rank
+    from cbet_raytracing_3d_tpu_torch.parallel.multihost import spawn_ranks
+    from cbet_raytracing_3d_tpu_torch.runner import run
+    cfg = Config(**SHARDED)
+    ranks = spawn_ranks(_solve_rank, 2, cfg, "cuda:0", timeout=600)
+    want = run(cfg.replace(cbet_gain_mode="kernel_cell", dtype="float64"),
+               with_cbet=True, device=cuda, verbose=False).cbet
+    got = ranks[0]["kc64"]
+    assert got["iterations"] == want.iterations
+    assert rel_l2(got["edep"], want.edep) < 1e-10
+    assert rel_l2(got["intensity"], want.intensity) < 1e-10
+    assert got["stats"]["rank_beams"] == [2, 1]
+    for r in ranks:
+        n = r["counts"]
+        assert n["K3"] == n["K3 b_out"] == r["kc"]["iterations"] > 0
+        assert n["K3 pairs"] == 0 and n["K4"] == n["K2"] > 0
+        assert r["rows_equal"] and r["rows_max"] > 0

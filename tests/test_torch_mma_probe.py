@@ -102,8 +102,6 @@ def test_chain_and_variant_checks():
     a, b = _bf16_operands(np.random.default_rng(2), 16, 32, 16, False, False)
     with pytest.raises(ValueError, match="chain"):
         mp.mma_probe_reference(a, b, chain=0)
-    with pytest.raises(ValueError, match="variant"):
-        mp._launch(a, b, variant="mma")
     with pytest.raises(RuntimeError, match="CUDA"):
         mp._launch(a, b)            # the kernel never runs on CPU tensors
     assert mp.CHAIN_SLICES is None and mp.SLICE == 64
