@@ -228,7 +228,12 @@ def main(argv=None) -> int:
     cfg = config_from_args(args)
     rank = 0
     if args.cmd == "run" and "WORLD_SIZE" in os.environ:
-        rank = _join_group(parser, args)
+        from .parallel.multihost import join_torchrun_group
+        try:
+            rank, args.device = join_torchrun_group(args.device,
+                                                    args.dist_backend)
+        except ValueError as e:
+            parser.error(str(e))
     if args.device is None:
         try:
             args.device = default_device()
@@ -286,51 +291,6 @@ def main(argv=None) -> int:
         return _track(cfg, args)
 
     return 1
-
-
-def _join_group(parser: argparse.ArgumentParser,
-                args: argparse.Namespace) -> int:
-    """Join the process group ``torchrun`` describes (``WORLD_SIZE``,
-    ``RANK``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_*``): the
-    rank's device (default ``cuda:$LOCAL_RANK``), the backend (default
-    NCCL on the card, gloo on the CPU), then ``init_process_group``.
-    Returns the rank.  NCCL with several ranks on one device is refused
-    before the group forms; nothing picks another backend or device."""
-    from .parallel.multihost import initialize_multihost
-    local = int(os.environ.get("LOCAL_RANK", 0))
-    local_world = int(os.environ.get("LOCAL_WORLD_SIZE",
-                                     os.environ["WORLD_SIZE"]))
-    explicit = args.device is not None
-    if not explicit:
-        try:
-            default_device()
-        except RuntimeError as e:
-            parser.error(str(e))
-        args.device = f"cuda:{local}"
-    device = torch.device(args.device)
-    backend = args.dist_backend or ("nccl" if device.type == "cuda"
-                                    else "gloo")
-    if backend == "nccl":
-        if device.type != "cuda":
-            parser.error(f"--dist-backend nccl needs CUDA devices, got "
-                         f"--device {args.device}; the CPU takes "
-                         "--dist-backend gloo")
-        if local_world > 1 and explicit:
-            parser.error(f"NCCL cannot run {local_world} ranks on one device "
-                         f"({args.device}); pass --dist-backend gloo to let "
-                         "ranks share a card")
-        if local_world > torch.cuda.device_count():
-            parser.error(f"NCCL needs a card per rank: {local_world} ranks "
-                         f"on this host, {torch.cuda.device_count()} "
-                         "card(s); pass --dist-backend gloo --device cuda:0 "
-                         "to let ranks share one")
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    initialize_multihost(backend=backend)
-    import atexit
-    import torch.distributed as dist
-    atexit.register(dist.destroy_process_group)
-    return dist.get_rank()
 
 
 def _track(cfg: Config, args: argparse.Namespace) -> int:

@@ -854,7 +854,10 @@ def cbet_solve(cfg: Config, ctx: rt.TraceContext, device=None,
     iterates by Anderson(m=1) instead of the plain relaxed step.  The stats
     carry the JAX solve's keys plus the per-iteration gain/trace/update
     seconds (each ends in a device synchronize), the steps of every trace
-    (the final full trace last) and the final trace's seconds.
+    (the final full trace last) and the final trace's seconds;
+    ``result_fetch_seconds`` holds the final stats, the combine across
+    ranks and the copies to the host, ``result_d2h_seconds`` the copies
+    alone.
 
     On the ranks of ``group`` (default: the default process group, when
     ``torch.distributed`` is initialized; the module docstring has the
@@ -960,10 +963,14 @@ def cbet_solve(cfg: Config, ctx: rt.TraceContext, device=None,
                                        [n for _, n in solver.beams])
         trace_steps = sh.all_reduce_max(
             torch.tensor(trace_steps, device=device), mesh).tolist()
+    _sync(device)
+    td = time.perf_counter()
     edep_h = edep.to("cpu", torch.float64).numpy()
     inten_h = intensity.to("cpu", torch.float64).numpy().reshape(
         cfg.nbeams, hx, hy, hz)
     stats["result_fetch_seconds"] = time.perf_counter() - tf
+    # the copies to the host alone, without the cross-rank combine above
+    stats["result_d2h_seconds"] = time.perf_counter() - td
     # the per-beam grouped deposit; on several ranks each over its own beams
     stats["intensity_mode"] = "beam_sharded" if mesh.world > 1 else "grouped"
     stats["segmented"] = bool(cfg.cbet_segmented)

@@ -20,6 +20,7 @@ What the JAX module has and this one drops, with the reason:
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 import queue
@@ -27,11 +28,12 @@ import tempfile
 import time
 import traceback
 
+import torch
 import torch.distributed as dist
 
 from .sharding import make_mesh, run_sharded_state
 
-__all__ = ["initialize_multihost", "local_slot_slice",
+__all__ = ["initialize_multihost", "join_torchrun_group", "local_slot_slice",
            "run_sharded_multihost", "spawn_ranks"]
 
 
@@ -63,6 +65,54 @@ def initialize_multihost(coordinator_address: str | None = None,
             else f"tcp://{coordinator_address}")
     dist.init_process_group(backend, init_method=init,
                             world_size=num_processes, rank=process_id, **kw)
+
+
+def join_torchrun_group(device: str | None = None,
+                        backend: str | None = None) -> tuple[int, str]:
+    """Join the process group ``torchrun`` describes (``WORLD_SIZE``,
+    ``RANK``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_*``), as ``cli
+    run`` and the bench do: the rank's device (default ``cuda:$LOCAL_RANK``),
+    the backend (default NCCL on the card, gloo on the CPU), then
+    :func:`initialize_multihost`; the group is destroyed at exit.  Returns
+    ``(rank, device)``.
+
+    Raises ValueError, before the group forms, where it cannot: no card and
+    no ``device``, NCCL on the CPU, NCCL with several ranks on one named
+    device or with more ranks than cards.  Nothing picks another backend or
+    device."""
+    from ..models.raytracer import default_device
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                     os.environ["WORLD_SIZE"]))
+    explicit = device is not None
+    if not explicit:
+        try:
+            default_device()
+        except RuntimeError as e:
+            raise ValueError(str(e)) from None
+        device = f"cuda:{local}"
+    dev = torch.device(device)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if backend == "nccl":
+        if dev.type != "cuda":
+            raise ValueError(f"--dist-backend nccl needs CUDA devices, got "
+                             f"--device {device}; the CPU takes "
+                             "--dist-backend gloo")
+        if local_world > 1 and explicit:
+            raise ValueError(f"NCCL cannot run {local_world} ranks on one "
+                             f"device ({device}); ranks share a card over "
+                             "gloo (cli run --dist-backend gloo)")
+        if local_world > torch.cuda.device_count():
+            raise ValueError(f"NCCL needs a card per rank: {local_world} "
+                             f"ranks on this host, "
+                             f"{torch.cuda.device_count()} card(s); pass "
+                             "--dist-backend gloo --device cuda:0 to let "
+                             "ranks share one")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    initialize_multihost(backend=backend)
+    atexit.register(dist.destroy_process_group)
+    return dist.get_rank(), device
 
 
 def local_slot_slice(n_slots: int, world: int, rank: int) -> slice:

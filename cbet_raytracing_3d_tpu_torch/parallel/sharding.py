@@ -136,6 +136,17 @@ def all_gather_rows(rows: torch.Tensor, mesh: Ranks,
     return torch.cat([p[:c] for p, c in zip(parts, counts)])
 
 
+def barrier(mesh: Ranks) -> None:
+    """Wait until every rank arrives, so that timed work starts together.
+    Nothing without a process group."""
+    if not mesh.distributed:
+        return
+    import torch.distributed as dist
+    kw = ({"device_ids": [torch.cuda.current_device()]}
+          if mesh.backend == "nccl" else {})
+    dist.barrier(group=mesh.group, **kw)
+
+
 def rank_rows(values: list, mesh: Ranks) -> list[list]:
     """Every rank's list of numbers, in rank order, on every rank: the
     per-rank widths and seconds that the stats report."""
@@ -303,4 +314,4 @@ __all__ = ["Ranks", "make_mesh", "all_reduce_sum", "all_reduce_max",
            "all_gather_rows", "rank_rows", "pad_rays", "local_state",
            "make_sharded_trace_fn", "reduce_trace_stats", "rank_stats",
            "run_sharded",
-           "run_sharded_state", "rank_beams", "single_rank_only"]
+           "run_sharded_state", "rank_beams", "single_rank_only", "barrier"]

@@ -129,6 +129,15 @@ Phases (one line each; any failure exits non-zero before the last line):
    port's CPU track of the same pairs (cells identical, positions and
    energies within 1e-12); ``cli run --profile-dir``: the trace names K1's
    kernel.
+23. the bench: ``python -m cbet_raytracing_3d_tpu_torch.bench`` as a
+   subprocess (the OMEGA trace and the converged kernel_cell solve): two
+   JSON lines; ``backend`` cuda with phase 1's card and power limit; the
+   OMEGA golden within 2e-4 / 1e-4 and the CBET golden within 2.78e-4 /
+   1.89e-4; K1 launches = steps / 5; 5 iterations, the history within 1e-3
+   of the golden's; K2 = K4 = the median solve's windows, K3 = its
+   iterations, all through the pair kernel.  Then the same under ``torchrun
+   --nproc-per-node 1`` (NCCL): one device, ``edep_total`` within 2x phase
+   7's drift of the first run's.
 
 Phases 15, 16, 18 and 19 print their peak device memory beside
 ``runner.estimate_device_bytes``; 15, 18 and 19 fail when a peak exceeds the
@@ -467,16 +476,14 @@ def main() -> int:
     from cbet_raytracing_3d_tpu_torch.parallel.sharding import pad_rays
     from cbet_raytracing_3d_tpu_torch.runner import run
     from cbet_raytracing_3d_tpu_torch.utils import cuda_build
+    from cbet_raytracing_3d_tpu_torch.utils.card import nvidia_smi_line
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = nvidia_smi_line(0)
     name = torch.cuda.get_device_name(0)
     say("1 device", f"{name}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -927,6 +934,10 @@ def main() -> int:
     # 22. diagnostics: the tracker and the profiler on the card
     for line in diagnostics(smi):
         say("22 diagnostics", line)
+
+    # 23. the bench, as a user runs it, alone and under torchrun
+    for line in bench_phase(name, smi, drift):
+        say("23 bench", line)
 
     src = f"{PKG}/csrc"
     kernels = [
@@ -2661,6 +2672,102 @@ def diagnostics(smi):
                  f"{t_prof:.1f} s as a subprocess; card {smi}")
     shutil.rmtree(work, ignore_errors=True)
     return lines
+
+
+def _bench_records(argv: list, timeout: float) -> tuple:
+    """Run the bench (``argv`` after the interpreter) from the repository
+    root; its two JSON lines as dicts, and the seconds it took."""
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], capture_output=True,
+                          text=True, timeout=timeout, cwd=REPO)
+    secs = time.perf_counter() - t
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) != 2:
+        raise RuntimeError(f"{' '.join(argv)}: rc {proc.returncode}, "
+                           f"{len(lines)} lines: {proc.stdout[-2000:]}"
+                           f"{proc.stderr[-3000:]}")
+    return [json.loads(x) for x in lines], secs
+
+
+def bench_phase(name, smi, drift):
+    """Phase 23: ``python -m ...bench`` as a subprocess (the OMEGA trace and
+    the converged kernel_cell solve): two lines, the card named, the goldens
+    within their bars, K1 once per window, 5 iterations with the golden's
+    history, K2 = K4 = the windows of the median solve, K3 = its
+    iterations, all through the pair kernel; then under ``torchrun
+    --nproc-per-node 1`` (NCCL, the group path; 2 traces, 1 solve): one
+    device, its total within 2x phase 7's drift.  Returns lines."""
+    from cbet_raytracing_3d_tpu_torch.utils.card import power_limit_watts
+    (first, rec), secs = _bench_records(["-m", f"{PKG}.bench"], 600)
+    (_, rec1), secs1 = _bench_records(
+        ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+         "1", "-m", f"{PKG}.bench", "--repeats", "2", "--cbet-repeats", "1"],
+        600)
+    n = rec["cbet_launches"]
+    windows = sum(rec["cbet_trace_steps"]) // 5
+    hist = max(abs(h - g) for h, g in zip(rec["cbet_history"], CBET_HISTORY))
+    d_tot = abs(rec1["edep_total"] / rec["edep_total"] - 1)
+    checks = {
+        "the first line is the trace record":
+            {k: rec[k] for k in first} == first,
+        "backend cuda, phase 1's card and limit": (
+            rec["backend"] == "cuda" and rec["device_name"] == name
+            and rec["nvidia_smi"] == smi
+            and rec["power_limit_w"] == power_limit_watts(smi)),
+        "golden grid < 2e-4, total < 1e-4, no drift flag": (
+            rec["golden_rel_l2"] < 2e-4 and rec["golden_total_rel"] < 1e-4
+            and not rec["golden_drift"]),
+        "K1 launches == steps / 5 > 0":
+            rec["launches"] * 5 == rec["steps_executed"] > 0,
+        "5 iterations, converged": (rec["cbet_iterations"] == 5
+                                    and rec["cbet_converged"]),
+        # absolute: the golden's history is rounded to 5 decimals
+        "history within 1e-3 (absolute) of the golden's": hist < 1e-3,
+        "CBET golden grid < 2.78e-4, total < 1.89e-4, no drift flag": (
+            rec["cbet_golden_rel_l2"] < 2.78e-4
+            and rec["cbet_golden_total_rel"] < 1.89e-4
+            and not rec["cbet_golden_drift"]),
+        "K4 == K2 == windows > 0, no K1": (
+            n["K4"] == n["K2"] == windows > 0 and n["K1"] == 0),
+        "K3 == iterations, all the pair kernel's":
+            n["K3"] == n["K3_pairs"] == rec["cbet_iterations"],
+        "every measured solve seeded": rec["cbet_seeded_zero_gain"],
+        "kernel_cell, compacted": (rec["cbet_gain_mode"] == "kernel_cell"
+                                   and rec["cbet_segmented"]),
+        "torchrun: 1 device, NCCL": (rec1["devices"] == 1
+                                     and rec1["dist_backend"] == "nccl"),
+        f"torchrun: edep_total within 2 x drift ({2 * drift:.2e})":
+            d_tot <= 2 * drift,
+        "torchrun: goldens held": (not rec1["golden_drift"]
+                                   and not rec1["cbet_golden_drift"]
+                                   and rec1["cbet_iterations"] == 5),
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"bench failed: "
+                           f"{[k for k, v in checks.items() if not v]}; "
+                           f"{json.dumps(rec)}")
+    return [
+        f"python -m {PKG}.bench ({secs:.1f} s): value {rec['value']:.6e} "
+        f"ray-steps/s, trace_seconds {rec['trace_seconds']:.6f} (median "
+        f"{rec['trace_seconds_median']:.6f}), value_window "
+        f"{rec['value_window']:.6e}, cbet_wallclock_seconds "
+        f"{rec['cbet_wallclock_seconds']:.6f} of "
+        f"{[round(x, 6) for x in rec['cbet_wallclock_samples']]}, "
+        f"cbet_solve_seconds {rec['cbet_solve_seconds']:.6f}; golden "
+        f"{rec['golden_rel_l2']:.3e} / {rec['golden_total_rel']:.3e}, CBET "
+        f"golden {rec['cbet_golden_rel_l2']:.3e} / "
+        f"{rec['cbet_golden_total_rel']:.3e}; history "
+        f"{[round(h, 5) for h in rec['cbet_history']]}; launches K1 "
+        f"{rec['launches']} per trace, per solve {n}; energy balance trace "
+        f"{rec['energy_balance']:.3e}, CBET {rec['cbet_energy_balance']:.3e};"
+        f" init {rec['init_seconds']:.3f} s, build "
+        f"{rec['kernel_build_seconds']:.3f} s; card {smi}",
+        f"torchrun --nproc-per-node 1 bench (NCCL, {secs1:.1f} s): value "
+        f"{rec1['value']:.6e}, trace_seconds {rec1['trace_seconds']:.6f}, "
+        f"cbet_wallclock_seconds {rec1['cbet_wallclock_seconds']:.6f}, "
+        f"cbet_solve_seconds {rec1['cbet_solve_seconds']:.6f}; "
+        f"edep_total {d_tot:.3e} from the first run's (bar "
+        f"{2 * drift:.2e})"]
 
 
 if __name__ == "__main__":
