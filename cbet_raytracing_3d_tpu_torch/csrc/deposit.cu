@@ -33,8 +33,13 @@
 // holds every ray (in float64 on its direct path by default, see
 // cbet_deposit_f64).  A block whose rays fall into two groups
 // (rays_per_group not a multiple of 256) or whose box exceeds the capacity
-// takes the direct path, per-row global atomics.  The direct kernels (one
-// thread per row) run when the capacity is 0, and for K1 on one step.
+// takes the direct path, per-row global atomics.  A float step is a window
+// of one step: through the box too.  There the box also keeps the float
+// chunk grid's sum: with eight atomics per row, a node of a dense grid takes
+// hundreds of adds a step, each rounded against a sum that has grown far
+// larger, and BASELINE config 4's trace (200^3, 64M rays, a deposit per
+// step) lost 1.6e-6 of its energy that way.  The direct kernels (one thread
+// per row) run when the capacity is 0, and for a double step.
 // Rows with inc == 0 (dead rays) cost their own inc and nothing else.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a into the package's
@@ -165,12 +170,13 @@ int launch(void* edep, const void* cx, const void* cy, const void* cz,
            int box_nodes, void* overflow, void* tally, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (n_rays <= 0 || n % n_rays != 0) return (int)cudaErrorInvalidValue;
-  // the default: a float window through the box, a double window on the
-  // window kernel's direct path (a box of no nodes fits no block)
+  // the default: a float window (one step too) through the box, a double
+  // step on the direct kernel and a double window on the window kernel's
+  // direct path (a box of no nodes fits no block)
   const bool exact = box_nodes < 0 && sizeof(T) == sizeof(double);
   const int nodes = exact ? 0 : cbet::box_capacity(box_nodes);
   if (nodes < 0) return (int)cudaErrorInvalidValue;
-  if (n == n_rays || (nodes == 0 && !exact)) {
+  if (nodes == 0 && (!exact || n == n_rays)) {
     const long long blocks = (n + kThreads - 1) / kThreads;
     deposit_kernel<T><<<(unsigned int)blocks, kThreads, 0,
                         (cudaStream_t)stream>>>(
@@ -220,12 +226,12 @@ extern "C" {
 // Each entry enqueues one launch on `stream` and returns cudaGetLastError():
 // nonzero means the launch was refused.  No synchronization, no allocation.
 //
-// K1's rows are one step of `n_rays` rays (n == n_rays: the direct kernel,
-// one thread per row) or a step-major window of n / n_rays steps, which
-// takes the window kernel with a tile box of `box_nodes` nodes (as K2's,
-// below; 0: the direct kernel over all the window's rows).  With the
-// default (< 0) a float window goes through the box of the default
-// capacity and a double window takes the window kernel's direct path: the
+// K1's rows are one step of `n_rays` rays (n == n_rays) or a step-major
+// window of n / n_rays steps, which takes the window kernel with a tile box
+// of `box_nodes` nodes (as K2's, below; 0: the direct kernel, one thread per
+// row, over all the rows).  With the default (< 0) a float step or window
+// goes through the box of the default capacity, a double step takes the
+// direct kernel and a double window the window kernel's direct path: the
 // box rounds each corner to 2^-51 of its block's largest, which leaves a
 // node with a small sum up to 1.8e-12 (relative) from the direct adds on an
 // OMEGA window, more than the exact float64 grid of the golden checks

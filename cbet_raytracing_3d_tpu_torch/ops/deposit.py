@@ -24,9 +24,10 @@ the grouped form, the per-beam CBET intensity fields: ``grids`` is
 ``(i % n_rays) // rays_per_group`` (rows are one step of ``n_rays`` rays, or
 a step-major window of several).
 
-K1 and K2 deposit a step-major window ray-major, each block of 256 rays
-through a shared-memory tile box (``csrc/deposit_row.cuh``); K1 on one step
-is the direct kernel (one thread per row, global atomics).  ``BOX_DEFAULT``
+K1 and K2 deposit a step-major window (or one step) ray-major, each block
+of 256 rays through a shared-memory tile box (``csrc/deposit_row.cuh``); K1
+in float64 takes the direct kernel on one step (one thread per row, global
+atomics) and the window kernel's direct path on a window.  ``BOX_DEFAULT``
 asks for the kernel's own box capacity, 0 for the direct kernel.  The
 wrappers always take the default; ``_launch`` and ``_launch_grouped`` also
 take 0, to time the two designs side by side, and a ``tally`` of the box's
@@ -210,10 +211,11 @@ def deposit(edep, cx, cy, cz, fx, fy, fz, inc, n_rays=None):
 
 def _launch(edep, cx, cy, cz, fx, fy, fz, inc, n_rays=None,
             box_nodes=BOX_DEFAULT, tally=None):
-    """Check the CUDA arguments and launch K1: one step through the direct
-    kernel, a window through the tile box of capacity ``box_nodes`` (0: the
-    direct kernel over all its rows); returns the overflow count.  ``tally``
-    as in :func:`_launch_grouped`."""
+    """Check the CUDA arguments and launch K1: a step or a window through
+    the tile box of capacity ``box_nodes`` (0: the direct kernel over all
+    its rows; the default in float64: the direct kernel on one step, the
+    window kernel's direct path on a window); returns the overflow count.
+    ``tally`` as in :func:`_launch_grouped`."""
     ints, flts = (cx, cy, cz), (fx, fy, fz, inc)
     _check_cuda_args(edep, ints, flts)
     n_rays = _check_steps(cx.shape[0], n_rays)

@@ -93,7 +93,8 @@ def estimate_trace_bytes(cfg: Config) -> int:
       copy of it whole, and, at the traced width (at most all slots): the
       state, the step's new state and temporaries (``STEP_SLOT_FLOATS``
       floats and ``STEP_SLOT_BYTES`` bytes of indices and masks per slot)
-      and the window's seven (batch, N) rows.
+      and the window's seven (batch, N) rows (a deposit per step: the
+      step's and the step before's).
 
     The per-slot terms are fitted to ``scripts/peak_memory.py``'s readings
     on the card, rounded up."""
@@ -104,7 +105,9 @@ def estimate_trace_bytes(cfg: Config) -> int:
     nxp, nyp, nzp = cfg.edep_shape
     master_bytes = 8 if cfg.edep_dtype == "float64" else 4
     grids = nxp * nyp * nzp * (2 * master_bytes + fbytes)
-    batch = cfg.deposit_batch_steps if rt.batched(cfg) else 1
+    # a window's rows; a deposit per step: the step's rows and the rows of
+    # the step before it, still held while the next step computes
+    batch = cfg.deposit_batch_steps if rt.batched(cfg) else 2
     window = (3 * 4 + 4 * fbytes) * batch
     init = n * (INIT_SLOT_BYTES + state_bytes) + P * 4 * 8
     trace = n * (3 * state_bytes + STEP_SLOT_FLOATS * fbytes
@@ -123,67 +126,93 @@ def estimate_device_bytes(cfg: Config, with_cbet: bool = False,
     """Device memory a run needs: the counterpart of the JAX package's
     ``estimate_hbm_bytes`` for the port's layout.  The trace stage is
     :func:`estimate_trace_bytes`; with the CBET stage the larger of the two
-    (they run one after the other); ``trace=False`` is the CBET stage alone
-    (``cbet_solve_composed`` on a prepared scene).  The CBET stage:
-
-    * the solver's state (11 float + 3 int32 + 1 bool per slot of the full
-      layout), the step's temporaries (about three more states' worth) and
-      a compacted trace's write-back copy (one more),
-    * the (P, 4) field table,
-    * the grids: the ``edep_dtype`` master and the chunk grid,
-    * the solver's copy of the state and its traces' write-back
-      copy; the (B, Ph) intensity iterates
-      in the ray dtype (current, new, blend, the zero-gain seed) with the
-      float32 copy the gain reads and the float32 gain it returns; the
-      (B, P) gain table in the ray dtype (plus the float32 upsampling
-      temporaries when the CBET grid is coarsened); the per-beam intensity
-      grids (B, hx+2, hy+2, hz+2), chunk grid and master; the window's
-      (batch, N) streams: in the kernel gain modes the window advance's,
-      in the batched lookup the per-step rows and their concatenation; for
-      ``cbet_accel="anderson"``
-      three more intensity-sized buffers (the secant history and the
-      residual).  The kernel gain modes read the unpadded (B, P) gain table
-      counted above: the port makes no padded copy of it.
-    * ``beam_groups`` G > 1 (``cbet_solve_composed``): one group of B / G
-      beams is traced at a time, so the gain table, its upsampling
-      temporaries, the per-beam grids, the window's streams and the trace's
-      copies of the state count one group's share; the intensity iterates
-      and the solver's whole state stay."""
+    (they run one after the other), the CBET stage then counting the
+    prepared scene it runs on (the state and the field table);
+    ``trace=False`` is the CBET stage alone, what ``cbet_solve_composed``
+    allocates above the scene it is given (:func:`estimate_cbet_bytes`).
+    ``beam_groups`` G > 1 traces one group of B / G beams at a time."""
     if beam_groups < 1 or cfg.nbeams % beam_groups:
         raise ValueError(f"beam_groups={beam_groups} does not divide "
                          f"nbeams={cfg.nbeams}")
     if not with_cbet:
         return estimate_trace_bytes(cfg)
-    layout = rt.build_tile_layout(cfg)
-    n = layout.n_slots
+    total = estimate_cbet_bytes(cfg, beam_groups)
+    if not trace:
+        return total
     fbytes = 4 if cfg.dtype == "float32" else 8
-    state_bytes = 11 * fbytes + 3 * 4 + 1
-    P = cfg.nx * cfg.ny * cfg.nz
-    nxp, nyp, nzp = cfg.edep_shape
-    master_bytes = 8 if cfg.edep_dtype == "float64" else 4
-    grids = nxp * nyp * nzp * (master_bytes + fbytes)
-    hx, hy, hz = cfg.cbet_grid_shape
+    scene = (traced_slots(cfg) * (11 * fbytes + 3 * 4 + 1)
+             + cfg.nx * cfg.ny * cfg.nz * 4 * fbytes)
+    return max(total + scene, estimate_trace_bytes(cfg))
+
+
+def estimate_cbet_bytes(cfg: Config, beam_groups: int = 1) -> int:
+    """Device memory of the composed CBET solve (``cbet_solve_composed``;
+    the monolithic ``cbet_solve`` is fitted to no reading) above the
+    prepared scene, the larger of its three moments, over the traced slots N (:func:`traced_slots`, the
+    solver's layout; ``Ng = N / G`` a group's), B beams (``Bg = B / G`` a
+    group's), the full grid's P nodes, the CBET grid's Ph (``Pg`` with its
+    ghosts) and the ray dtype's ``f`` bytes:
+
+    * always held: the (B, Ph) intensity iterate, the previous iteration's
+      new intensity and the float32 gain, the gain's (4, Ph) table, the
+      beam ids (int32, N) and the ``edep_dtype`` master;
+    * a group's trace (the peak of a real scene): what the groups before it
+      left (their intensity rows and final ``uray`` / ``alive``), its beam
+      ids, its full-resolution gain rows (a copy when the CBET grid is
+      coarsened or the rays are float64, else a view of the gain), its two
+      per-beam intensity grids (Bg, Pg), the chunk grid and its promotion,
+      and per slot of the group ``CBET_SLOT_FLOATS`` floats and
+      ``CBET_SLOT_BYTES`` bytes (the compacted working state, the step's
+      new state and temporaries, the write-back copy, the lookup indices)
+      plus, per step of a window, the lookup's eight rows and their
+      concatenation (the kernel gain modes: the window advance's 13
+      streams);
+    * the update: three (B, Ph) temporaries beside the iterates, and the
+      whole final ``uray`` / ``alive``;
+    * the upsampling of a group's gain rows (coarsened CBET grid): the
+      einsum's last product and its reshaped copy, (Bg, P) float32 each.
+
+    Anderson mixing (``cbet_accel``) holds three more iterates.  The
+    per-slot terms are fitted to ``scripts/peak_memory.py --cbet``'s
+    readings on the card (OMEGA, BASELINE config 4; 1 and 4 groups),
+    and ``CBET_MARGIN`` covers what the terms do not count (the
+    allocator's rounding, small tables) and the peaks' spread from run to
+    run (0.6 % at config 4)."""
+    G = beam_groups
+    n = traced_slots(cfg)
+    ng = n // G
     B = cfg.nbeams
-    Bg = B // beam_groups            # beams traced at a time
-    ng = n // beam_groups            # their slots
-    # the solver's whole state stays; the trace's working state, its
-    # step temporaries and its write-back copy are one group's
-    total = (n + 6 * ng) * state_bytes + P * 4 * fbytes + grids
-    total += B * hx * hy * hz * (4 * fbytes + 2 * 4) + Bg * P * fbytes
-    if cfg.cbet_grid_downsample > 1:
-        total += 2 * Bg * P * 4
-    total += 2 * Bg * (hx + 2) * (hy + 2) * (hz + 2) * fbytes
-    batch = max(1, cfg.deposit_batch_steps)
-    if cfg.cbet_gain_mode != "lookup":
-        # 13 streams (cells, lag cells, fracs, inc, ds, contrib, energy,
-        # gamma) of (batch, N), 4-byte ints counted at the float width
-        total += 13 * batch * ng * fbytes
-    else:
-        # 8 rows (cells, fracs, inc, contrib) per step, twice
-        total += 16 * batch * ng * fbytes
-    if cfg.cbet_accel == "anderson":
-        total += 3 * B * hx * hy * hz * fbytes
-    return max(total, estimate_trace_bytes(cfg)) if trace else total
+    Bg = B // G
+    fbytes = 4 if cfg.dtype == "float32" else 8
+    master_bytes = 8 if cfg.edep_dtype == "float64" else 4
+    P = cfg.nx * cfg.ny * cfg.nz
+    hx, hy, hz = cfg.cbet_grid_shape
+    Ph = hx * hy * hz
+    Pg = (hx + 2) * (hy + 2) * (hz + 2)
+    E = cfg.edep_shape[0] * cfg.edep_shape[1] * cfg.edep_shape[2]
+    batch = cfg.deposit_batch_steps if rt.batched(cfg) else 1
+    done = (G - 1) / G                  # the groups traced before the last
+    held = (B * Ph * (2 * fbytes + 4) + 16 * Ph + 4 * n + E * master_bytes
+            + (3 * B * Ph * fbytes if cfg.cbet_accel == "anderson" else 0))
+    before = done * (B * Ph * fbytes + n * (fbytes + 1))
+    rows = (Bg * P * fbytes
+            if cfg.cbet_grid_downsample > 1 or fbytes != 4 else 0)
+    step = (13 * fbytes if cfg.cbet_gain_mode != "lookup"
+            else 2 * (3 * 4 + 5 * fbytes))
+    slot = CBET_SLOT_FLOATS * fbytes + CBET_SLOT_BYTES + batch * step
+    in_trace = (held + before + 4 * ng + rows + ng * slot
+                + 2 * Bg * Pg * fbytes + E * (fbytes + master_bytes))
+    update = held + 3 * B * Ph * fbytes + n * (fbytes + 1)
+    upsample = (held + before + 2 * Bg * P * 4
+                if cfg.cbet_grid_downsample > 1 else 0)
+    return int(CBET_MARGIN * max(in_trace, update, upsample))
+
+
+#: per-slot terms of :func:`estimate_cbet_bytes` (per slot of the group
+#: traced), and its margin
+CBET_SLOT_FLOATS = 36
+CBET_SLOT_BYTES = 74
+CBET_MARGIN = 1.05
 
 
 def check_memory(cfg: Config, device, with_cbet: bool = False,

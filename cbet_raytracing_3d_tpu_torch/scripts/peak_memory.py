@@ -1,16 +1,21 @@
-"""Peak device memory of the on-card init and of every chunk of the
-compacted windowed trace, beside ``runner.estimate_device_bytes``, on one
-NVIDIA card, from the root of a checkout:
+"""Peak device memory of the on-card init, of every chunk of the compacted
+trace and of the composed CBET solve, beside ``runner.estimate_device_bytes``,
+on one NVIDIA card, from the root of a checkout:
 
     python -m cbet_raytracing_3d_tpu_torch.scripts.peak_memory [--config4]
+        [--cbet]
 
 Scenes: OMEGA (``Config()``) in float32 and float64; with ``--config4`` also
-BASELINE config 4 (200^3, 64,273,500 rays, nt = 800, float32).  For each:
-the peak of ``prepare_device`` and, chunk by chunk over
-``raytracer.ChunkedTrace`` (the loop ``runner.run_composed`` runs), the
-slots traced and the peak of that chunk (``torch.cuda.max_memory_allocated``,
-reset before each), in bytes and in bytes per slot of the traced state, then
-the largest of them against the estimate.  This is the measurement the
+BASELINE config 4 (``scripts/config4.CONFIG4``: 200^3, 64,273,500 rays,
+nt = 800, float32, a deposit per step).  For each: the peak of
+``prepare_device`` and, chunk by chunk over ``raytracer.ChunkedTrace`` (the
+loop ``runner.run_composed`` runs), the slots traced and the peak of that
+chunk (``torch.cuda.max_memory_allocated``, reset before each), in bytes and
+in bytes per slot of the traced state, then the largest of them against the
+estimate.  With ``--cbet``, for each float32 scene, the converged
+``cbet_solve_composed`` on that prepared scene with 1 and with 4 serial beam
+groups: its peak above what the scene holds, against the estimate of the
+CBET stage alone (``trace=False``).  These are the measurements the
 estimate's per-slot terms are fitted to.  Exits non-zero without a CUDA
 device, and 2 if a peak exceeds the estimate.
 """
@@ -26,7 +31,9 @@ import torch
 from .. import runner
 from ..config import Config
 from ..models import raytracer as rt
+from ..models.cbet_composed import cbet_solve_composed
 from .bench_mma_shapes import card_line
+from .config4 import CONFIG4
 
 GiB = 2 ** 30
 
@@ -42,7 +49,7 @@ def _peak() -> int:
     return torch.cuda.max_memory_allocated()
 
 
-def measure(name: str, cfg: Config, dev) -> bool:
+def measure(name: str, cfg: Config, dev, cbet: bool = False) -> bool:
     est = runner.estimate_device_bytes(cfg)
     _mark()
     base = torch.cuda.memory_allocated()
@@ -70,7 +77,32 @@ def measure(name: str, cfg: Config, dev) -> bool:
     print(f"{name}: peak {worst / GiB:.3f} GiB, estimate_device_bytes "
           f"{est / GiB:.3f} GiB: {'ok' if ok else 'the estimate is low'}",
           flush=True)
-    del ctx, carry, chunks
+    del carry, chunks
+    if cbet and cfg.dtype == "float32":
+        for groups in (1, 4):
+            ok &= measure_cbet(name, cfg, ctx, dev, groups)
+    del ctx
+    return ok
+
+
+def measure_cbet(name: str, cfg: Config, ctx, dev, groups: int) -> bool:
+    """The converged composed solve on ``ctx`` in ``groups`` beam groups:
+    its peak above what is held before it, against the estimate."""
+    est = runner.estimate_device_bytes(cfg, True, groups, trace=False)
+    _mark()
+    base = torch.cuda.memory_allocated()
+    r = cbet_solve_composed(cfg, ctx, device=dev, beam_groups=groups,
+                            verbose=False)
+    peak = _peak() - base
+    n = ctx.state0.n
+    ok = peak <= est
+    print(f"{name} CBET, {groups} groups: {r.iterations} iterations; peak "
+          f"{peak} bytes ({peak / GiB:.3f} GiB) above the {base} held, "
+          f"{peak / (n // groups):.1f} per slot of a group of {n // groups}; "
+          f"estimate_device_bytes {est} ({est / GiB:.3f} GiB): "
+          f"{peak / est:.4f} of it, "
+          f"{'ok' if ok else 'the estimate is low'}", flush=True)
+    del r
     return ok
 
 
@@ -78,6 +110,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config4", action="store_true",
                     help="also BASELINE config 4 (about 25 GiB)")
+    ap.add_argument("--cbet", action="store_true",
+                    help="also the composed CBET solve of each float32 "
+                         "scene, 1 and 4 beam groups")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("peak_memory: no CUDA device", file=sys.stderr)
@@ -87,10 +122,8 @@ def main(argv=None) -> int:
     scenes = [("OMEGA f32", Config()),
               ("OMEGA f64", Config(dtype="float64"))]
     if args.config4:
-        scenes.append(("config 4 f32", Config(
-            nx=200, ny=200, nz=200, rays_per_zone=15, tile_zones=2,
-            deposit_box_x=24, deposit_box_y=24, deposit_box_z=24)))
-    ok = [measure(name, cfg, dev) for name, cfg in scenes]
+        scenes.append(("config 4 f32", CONFIG4))
+    ok = [measure(name, cfg, dev, args.cbet) for name, cfg in scenes]
     return 0 if all(ok) else 2
 
 

@@ -1,6 +1,6 @@
-"""A resume drill of the port's resumable paths at BASELINE config 4 (200^3,
-64,273,500 rays, nt = 800, f32) on one NVIDIA card, from the root of a
-checkout:
+"""A resume drill of the port's resumable trace at BASELINE config 4
+(``scripts/config4.CONFIG4``: 200^3, 64,273,500 rays, nt = 800, f32, a
+deposit per step) on one NVIDIA card, from the root of a checkout:
 
     python -m cbet_raytracing_3d_tpu_torch.scripts.resume_drill [--stop 12]
 
@@ -8,11 +8,11 @@ checkout:
 checkpoint, the checkpoint is read and written once more for its seconds
 and bytes, and the run is resumed to the end (seconds, peak device memory
 against ``runner.estimate_device_bytes``, ``edep_total`` against
-``energy_absorbed``).  Then ``cbet_solve_composed`` runs iteration 0 and 1
-(``cbet_max_iters=1``) on the same scene with 4 serial beam groups and with
-1.  These are the calls ``cli run --composed [--cbet --cbet-only]`` makes;
-the peak memory is read in-process.  Checkpoints go to ``out/c4/`` (several
-GB) and are removed.  Exits non-zero without a CUDA device.
+``energy_absorbed``).  These are the calls ``cli run --composed
+--checkpoint PATH [--resume]`` makes; the peak memory is read in-process.
+The converged coupled solve of config 4 is ``scripts/config4.py --stage
+cbet``.  Checkpoints go to ``out/c4/`` (several GB) and are removed.  Exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,10 +25,9 @@ import time
 import torch
 
 from .. import runner
-from ..config import Config
-from ..models.cbet_composed import cbet_solve_composed
 from ..utils import checkpoint as ckm
 from .bench_mma_shapes import card_line
+from .config4 import CONFIG4
 
 GiB = 2 ** 30
 
@@ -51,18 +50,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("resume_drill: no CUDA device", file=sys.stderr)
         return 1
-    cfg = Config(nx=200, ny=200, nz=200, rays_per_zone=15, tile_zones=2,
-                 deposit_box_x=24, deposit_box_y=24, deposit_box_z=24,
-                 cbet_grid_downsample=2, cbet_max_iters=1)
+    cfg = CONFIG4
     dev = torch.device("cuda")
     os.makedirs("out/c4", exist_ok=True)
     ck = "out/c4/trace.ckpt.npz"
-    est = [runner.estimate_device_bytes(cfg) / GiB] + [
-        runner.estimate_device_bytes(cfg, True, g, False) / GiB
-        for g in (1, 4)]
+    est = runner.estimate_device_bytes(cfg) / GiB
     print(f"card {card_line()}; nt {cfg.nt}, rays {cfg.total_rays}, estimate "
-          f"trace {est[0]:.2f} GiB, cbet alone 1 group {est[1]:.2f}, 4 groups "
-          f"{est[2]:.2f}", flush=True)
+          f"{est:.2f} GiB", flush=True)
 
     _, t_a, p_a = timed(lambda: runner.run_composed(
         cfg, device=dev, verbose=True, checkpoint_path=ck,
@@ -91,29 +85,8 @@ def main(argv=None) -> int:
           f"energy_absorbed {st['energy_absorbed']:.10e} rel "
           f"{abs(st['edep_total'] / st['energy_absorbed'] - 1):.3e}; stats "
           f"{st}", flush=True)
-    ctx = res.ctx
     del res
     os.remove(ck)
-
-    for g in (4, 1):
-        path = f"out/c4/cbet{g}.ckpt.npz"
-        try:
-            r, t_c, p_c = timed(lambda: cbet_solve_composed(
-                cfg, ctx, device=dev, beam_groups=g, checkpoint_path=path,
-                verbose=True))
-        except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
-            print(f"C: cbet composed, {g} groups FAILED: "
-                  f"{type(e).__name__}: {str(e)[:500]}", flush=True)
-        else:
-            print(f"C: cbet composed, {g} groups: {t_c:.2f} s, peak "
-                  f"{p_c:.2f} GiB, iter_seconds {r.stats['iter_seconds']}, "
-                  f"history {r.history}, edep_total "
-                  f"{r.stats['edep_total']:.10e}, energy_absorbed "
-                  f"{r.stats['energy_absorbed']:.10e}, checkpoint "
-                  f"{os.path.getsize(path)} bytes", flush=True)
-            del r
-            os.remove(path)
-        torch.cuda.empty_cache()
     return 0
 
 

@@ -17,7 +17,7 @@ Phases (one line each; any failure exits non-zero before the last line):
    rows) in f32 and f64, and on an nz = 130 grid (K5's case), timed in f32
    beside the bound.  Then the main path's window (5 steps x 1,121,280 rows,
    150 steps into the OMEGA trace): through the tile box against the plain
-   version and against five direct one-step launches, f32 and f64 (a f64
+   version and against five one-step launches, f32 and f64 (a f64
    window takes the window kernel's direct path by default; the box's
    largest per-node relative error in f64 is printed), and a chunk's five
    windows into one f32 grid against their float64 sum; the box, the five
@@ -139,9 +139,29 @@ Phases (one line each; any failure exits non-zero before the last line):
    --nproc-per-node 1`` (NCCL): one device, ``edep_total`` within 2x phase
    7's drift of the first run's.
 
-Phases 15, 16, 18 and 19 print their peak device memory beside
-``runner.estimate_device_bytes``; 15, 18 and 19 fail when a peak exceeds the
-estimate (``runner.check_memory`` decides on it).
+24. BASELINE config 4 end to end (``scripts/config4.py``'s ``CONFIG4``:
+   200^3 nodes, 64,273,500 rays, nt = 800, 60 beams, f32 rays, f64 master,
+   a deposit per step, the CBET fields on the 100^3 coarse grid): the
+   on-card init; K1 one step into the 202^3 grid (the contract of the TPU's
+   K5, which the JAX trace takes whenever nz + 2 > 128) and K2 into one
+   group's 15 coarse 102^3 grids, each on the rows of the trace's first
+   chunk and of a compacted mid-trace chunk, f32 and f64, against their
+   plain versions (f32 <= 1e-6, f64 <= 1e-12 rel-L2), timed in turns with
+   them and with their direct kernels, with the blocks that took the tile
+   box (a f32 step goes through it); K3 at 60 beams x 10^6 coarse nodes
+   against its plain version and its all-pairs kernel; then the composed
+   trace (``runner.run_composed``) and the converged composed CBET solve
+   (``cbet_solve_composed``, 4 groups) in f32, held by
+   ``scripts/config4.hold_config4`` against the JAX package's records
+   (trace ``edep_total`` within 1e-4 of 6.08271083e18, balance <= 1e-6,
+   50,289,000 rays terminated; the solve against
+   ``artifacts/config4_cbet_r05.json``: 5 iterations, history, totals,
+   balance, rays); K1 once per trace step, K1 and K2 once per group step,
+   K3 once per iteration on the pair kernel, no K4.
+
+Phases 15, 16, 18, 19 and 24 print their peak device memory beside
+``runner.estimate_device_bytes``; 15, 18, 19 and 24 fail when a peak exceeds
+the estimate (``runner.check_memory`` decides on it).
 
 Then one JSON line describing the kernels (each with its bound on this card:
 the larger of its bytes over 3.35 TB/s and its operations over the peak of
@@ -300,18 +320,22 @@ def box_share(launch, device) -> tuple:
 
 def gain_case(rng, cfg, ctx, device):
     """The gain reduction's inputs at the scene's shapes: ``pair_u`` and
-    ``rhat_pre`` as ``models.cbet.make_gain_fn`` builds them, and a random
-    float32 intensity of the W/cm^2 scale."""
+    ``rhat_pre`` as ``models.cbet.make_gain_fn`` builds them (on the CBET
+    grid), and a random float32 intensity of the W/cm^2 scale."""
     import torch
     from cbet_raytracing_3d_tpu_torch.models import cbet
-    rhat = cbet._node_rhat(cfg)
-    pre = cbet.gain_prefactor_field(cfg, ctx.fields).reshape(-1)
-    rp = np.concatenate([rhat, pre[None]]).astype(np.float32)
-    pu = cbet.pair_couplings(ctx.beam_norm, cfg.machnum).astype(np.float32)
-    inten = rng.uniform(0.0, 1e14, size=(cfg.nbeams, rhat.shape[1]))
-    return (torch.as_tensor(pu, device=device),
-            torch.as_tensor(rp, device=device),
-            torch.as_tensor(inten, dtype=torch.float32, device=device))
+    pu, rp = cbet._gain_tables(cfg, ctx, device)
+    inten = rng.uniform(0.0, 1e14, size=(cfg.nbeams, rp.shape[1]))
+    return pu, rp, torch.as_tensor(inten, dtype=torch.float32, device=device)
+
+
+def compare(got, want) -> tuple:
+    """(rel-L2, max-abs, all finite) of a card result against its plain
+    version, in float64 on the host."""
+    g64 = got.double().cpu().numpy()
+    w64 = want.double().cpu().numpy()
+    return (rel_l2(g64, w64), float(np.abs(g64 - w64).max()),
+            bool(np.isfinite(g64).all()))
 
 
 def gain_all_pairs(pair_u, rhat_pre, intensity):
@@ -664,8 +688,9 @@ def main() -> int:
     del state64, field64, ctx64
     # f32: the two traces add the same values into f32 chunk grids in another
     # grouping (a block's window is summed exactly in its box and added once;
-    # per step every corner is added on its own), so they differ by the
-    # chunk grids' rounding, above the drift of one grouping's atomics
+    # per step each step's block sums are added on their own), so they
+    # differ by the chunk grids' rounding, above the drift of one grouping's
+    # atomics
     if not (drift < 1e-6 and drift_1 < 1e-6 and d32 < 1e-5 and d64 < 1e-12):
         raise RuntimeError(f"kernel traces differ: windows twice {drift}, a "
                            f"deposit per step twice {drift_1}, windows vs a "
@@ -939,6 +964,11 @@ def main() -> int:
     for line in bench_phase(name, smi, drift):
         say("23 bench", line)
 
+    # 24. BASELINE config 4 end to end
+    rows24, kern24, n24 = config4_phase(dev, smi, zero_counts, read_counts)
+    for line in rows24:
+        say("24 config4", line)
+
     src = f"{PKG}/csrc"
     kernels = [
         {"name": "deposit", "route": "cuda", "source": f"{src}/deposit.cu",
@@ -978,6 +1008,22 @@ def main() -> int:
          "launches": n21, **kern21[30],
          "rows_15": {k: kern21[15][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}},
+        # config 4's path (phase 24): K1 on one step into the 202^3 grid,
+        # the contract of the TPU's K5 (pallas_deposit.py:820, called at
+        # :863 whenever nz + 2 > 128); K2 into one group's coarse grids; K3
+        # at the coarse grid's 10^6 nodes
+        {"name": "deposit (config 4, one step into 202^3: K5's contract)",
+         "route": "cuda", "source": f"{src}/deposit.cu",
+         "replaces": "cbet_raytracing_3d_tpu/ops/pallas_deposit.py:820",
+         "launches": n24["K1"], **kern24["K1"]},
+        {"name": "deposit_grouped (config 4, one group's coarse grids)",
+         "route": "cuda", "source": f"{src}/deposit.cu",
+         "replaces": "cbet_raytracing_3d_tpu/ops/pallas_deposit.py:527",
+         "launches": n24["K2"], **kern24["K2"]},
+        {"name": "gain (config 4, 60 beams x 10^6 coarse nodes)",
+         "route": "cuda", "source": f"{src}/gain.cu",
+         "replaces": "cbet_raytracing_3d_tpu/ops/pallas_gain.py:58",
+         "launches": n24["K3"], **kern24["K3"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -991,7 +1037,7 @@ def deposit_window_vs_plain(cfg, ctx, dev):
     """Phase 3, the main path's window: K1 on the 5-step window that
     ``raytracer.make_trace_fn`` builds 150 steps into the OMEGA trace
     (``scripts.box_sweep.trace_window``), against its plain version and
-    against five direct one-step launches, f32 and f64; timed in turns.
+    against five one-step launches, f32 and f64; timed in turns.
     Returns (report lines, {max_abs_err, ms, plain_ms, bound_ms, bound_by,
     library_ms, per_step_ms, direct_ms, box_share} of the f32 case)."""
     import torch
@@ -1121,19 +1167,10 @@ def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
     lines, per-kernel {max_abs_err, ms, plain_ms, bound_ms, bound_by,
     library_ms, direct_ms, box_share} of the float32 cases)."""
     import torch
-    from cbet_raytracing_3d_tpu_torch.models import cbet
     from cbet_raytracing_3d_tpu_torch.ops import deposit as dep
-    from cbet_raytracing_3d_tpu_torch.ops import gain as gop
     from cbet_raytracing_3d_tpu_torch.ops import gain_deposit as gdep
-    from cbet_raytracing_3d_tpu_torch.utils import cuda_build
 
     lines, kern = [], {}
-
-    def compare(got, want):
-        g64 = np.asarray(got.double().cpu().numpy(), np.float64)
-        w64 = np.asarray(want.double().cpu().numpy(), np.float64)
-        return (rel_l2(g64, w64), float(np.abs(g64 - w64).max()),
-                bool(np.isfinite(g64).all()))
 
     # K2, one synthetic step of the CBET layout's rows into 60 beam grids:
     # boundary exits, dead rows, tiles scattered over the grid (the blocks
@@ -1186,75 +1223,9 @@ def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
         lines.append(line)
         del args, got, want
 
-    # K3: 60 beams x 100^3 nodes through the pair kernel (the solver's
-    # couplings are antisymmetric), bit for bit the all-pairs kernel; and
-    # the b_out form (8 output rows) on the all-pairs kernel
-    pu, rp, inten = gain_case(rng, cfg, ctx, dev)
-    lib = cuda_build.load()
-    for bo in (cfg.nbeams, 8):
-        full = bo == cfg.nbeams
-        pu_b = pu[:bo].contiguous()
-        before = (gop.LAUNCHES, gop.PAIR_LAUNCHES)
-        got = gop.gain(pu_b, rp, inten)
-        counted = (gop.LAUNCHES - before[0], gop.PAIR_LAUNCHES - before[1])
-        want = gop.gain_reference(pu_b, rp, inten)
-        err, mx, fin = compare(got, want)
-        if not (err < 1e-5 and fin and counted == (1, int(full))
-                and gop.pairs_antisymmetric(pu_b) == full
-                and float(want.abs().max()) > 0):
-            raise RuntimeError(f"K3 vs plain failed (Bo={bo}): rel-L2 {err}, "
-                               f"launches (all, pair kernel) {counted}")
-        B, P = inten.shape
-        line = (f"K3 gain Bo={bo} B={B} P={P}, the "
-                f"{'pair' if full else 'all-pairs'} kernel: rel-L2 {err:.3e} "
-                f"max-abs {mx:.6e} (< 1e-5; the whole difference is the "
-                "kernels' FMA contraction)")
-        # pair_u, rhat_pre and I read once, G written once
-        nbytes = 4 * (pu_b.numel() + rp.numel() + (B + bo) * P)
-        if full:
-            every = gop._launch(lib, pu, rp, inten, False)
-            same = bool(torch.equal(got, every))
-            plain_pairs = gop.gain_pairs_reference(pu, rp, inten)
-            err_pp = compare(got, plain_pairs)[0]
-            if not (same and err_pp < 1e-5):
-                raise RuntimeError(
-                    f"K3 pair kernel vs all-pairs kernel: "
-                    f"{int((got != every).sum())} values differ, max "
-                    f"{float((got - every).abs().max())}; vs its plain "
-                    f"version {err_pp}")
-            kb = bound(nbytes, k3_ops(B, B) * P, PEAK_F32)
-            # every (b, b'): eta 5, the resonance 7, the product and sum 2
-            kb_all = bound(nbytes, 14 * B * B * P, PEAK_F32)
-            ms = in_turns({
-                "pairs": lambda: gop.gain(pu, rp, inten),
-                "all": lambda: gop._launch(lib, pu, rp, inten, False)}, 10)
-            ms_p = cuda_ms(lambda: gop.gain_reference(pu, rp, inten), 3)
-            ms_pp = cuda_ms(lambda: gop.gain_pairs_reference(pu, rp, inten),
-                            1)
-            kern["K3"] = {"max_abs_err": mx, "ms": ms["pairs"],
-                          "plain_ms": ms_pp, **kb, "library_ms": None,
-                          "all_pairs_ms": ms["all"],
-                          "all_pairs_bound_ms": kb_all["bound_ms"],
-                          "all_pairs_plain_ms": ms_p}
-            line += (f"; equal to the all-pairs kernel bit for bit (it takes "
-                     f"up to {lib.cbet_gain_pairs_max_beams()} beams); vs its "
-                     f"own plain version {err_pp:.3e}; pair kernel "
-                     f"{ms['pairs']:.4f} ms, all-pairs kernel "
-                     f"{ms['all']:.4f} ms (in turns), plain pairs "
-                     f"{ms_pp:.4f} ms, plain all-pairs {ms_p:.4f} ms per "
-                     f"call; bound {kb['bound_ms']:.4f} ms "
-                     f"({kb['bound_by']}; every (b, b'): "
-                     f"{kb_all['bound_ms']:.4f} ms)")
-            del every, plain_pairs
-        else:
-            kb = bound(nbytes, k3_ops(B, bo) * P, PEAK_F32)
-            ms = cuda_ms(lambda: gop.gain(pu_b, rp, inten), 10)
-            kern["K3"]["b_out_ms"] = ms
-            line += (f"; {ms:.4f} ms per call, bound {kb['bound_ms']:.4f} ms"
-                     f" ({kb['bound_by']})")
-        lines.append(line)
-        del got, want
-    del pu, rp, inten
+    # K3: 60 beams x 100^3 nodes
+    rows3, kern["K3"] = k3_vs_plain(cfg, ctx, dev, rng)
+    lines += rows3
 
     # K4 "cell" and K2 on the main path's window: an OMEGA window 150 steps
     # in (3/8 of nt; the last rays die near step 250), smooth gain of both
@@ -1355,6 +1326,87 @@ def cbet_kernels_vs_plain(cfg, ctx, dev, rng):
         del gain, args, st, w, k2a, i_k, i_p
     return lines, kern
 
+
+
+def k3_vs_plain(cfg, ctx, dev, rng):
+    """K3 at the scene's shapes (B beams x the CBET grid's nodes) against
+    its plain version: the pair kernel (the solver's couplings are
+    antisymmetric), bit for bit the all-pairs kernel, both timed in turns;
+    and the b_out form (8 output rows) on the all-pairs kernel.  Returns
+    (lines, the pair kernel's {max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, library_ms, all_pairs_*, b_out_ms})."""
+    import torch
+    from cbet_raytracing_3d_tpu_torch.ops import gain as gop
+    from cbet_raytracing_3d_tpu_torch.utils import cuda_build
+
+    lines, kern = [], {}
+    pu, rp, inten = gain_case(rng, cfg, ctx, dev)
+    lib = cuda_build.load()
+    for bo in (cfg.nbeams, 8):
+        full = bo == cfg.nbeams
+        pu_b = pu[:bo].contiguous()
+        before = (gop.LAUNCHES, gop.PAIR_LAUNCHES)
+        got = gop.gain(pu_b, rp, inten)
+        counted = (gop.LAUNCHES - before[0], gop.PAIR_LAUNCHES - before[1])
+        want = gop.gain_reference(pu_b, rp, inten)
+        err, mx, fin = compare(got, want)
+        if not (err < 1e-5 and fin and counted == (1, int(full))
+                and gop.pairs_antisymmetric(pu_b) == full
+                and float(want.abs().max()) > 0):
+            raise RuntimeError(f"K3 vs plain failed (Bo={bo}): rel-L2 {err}, "
+                               f"launches (all, pair kernel) {counted}")
+        B, P = inten.shape
+        line = (f"K3 gain Bo={bo} B={B} P={P}, the "
+                f"{'pair' if full else 'all-pairs'} kernel: rel-L2 {err:.3e} "
+                f"max-abs {mx:.6e} (< 1e-5; the whole difference is the "
+                "kernels' FMA contraction)")
+        # pair_u, rhat_pre and I read once, G written once
+        nbytes = 4 * (pu_b.numel() + rp.numel() + (B + bo) * P)
+        if full:
+            every = gop._launch(lib, pu, rp, inten, False)
+            same = bool(torch.equal(got, every))
+            plain_pairs = gop.gain_pairs_reference(pu, rp, inten)
+            err_pp = compare(got, plain_pairs)[0]
+            if not (same and err_pp < 1e-5):
+                raise RuntimeError(
+                    f"K3 pair kernel vs all-pairs kernel: "
+                    f"{int((got != every).sum())} values differ, max "
+                    f"{float((got - every).abs().max())}; vs its plain "
+                    f"version {err_pp}")
+            kb = bound(nbytes, k3_ops(B, B) * P, PEAK_F32)
+            # every (b, b'): eta 5, the resonance 7, the product and sum 2
+            kb_all = bound(nbytes, 14 * B * B * P, PEAK_F32)
+            ms = in_turns({
+                "pairs": lambda: gop.gain(pu, rp, inten),
+                "all": lambda: gop._launch(lib, pu, rp, inten, False)}, 10)
+            ms_p = cuda_ms(lambda: gop.gain_reference(pu, rp, inten), 3)
+            ms_pp = cuda_ms(lambda: gop.gain_pairs_reference(pu, rp, inten),
+                            1)
+            kern = {"max_abs_err": mx, "ms": ms["pairs"],
+                    "plain_ms": ms_pp, **kb, "library_ms": None,
+                    "all_pairs_ms": ms["all"],
+                    "all_pairs_bound_ms": kb_all["bound_ms"],
+                    "all_pairs_plain_ms": ms_p}
+            line += (f"; equal to the all-pairs kernel bit for bit (it takes "
+                     f"up to {lib.cbet_gain_pairs_max_beams()} beams); vs its "
+                     f"own plain version {err_pp:.3e}; pair kernel "
+                     f"{ms['pairs']:.4f} ms, all-pairs kernel "
+                     f"{ms['all']:.4f} ms (in turns), plain pairs "
+                     f"{ms_pp:.4f} ms, plain all-pairs {ms_p:.4f} ms per "
+                     f"call; bound {kb['bound_ms']:.4f} ms "
+                     f"({kb['bound_by']}; every (b, b'): "
+                     f"{kb_all['bound_ms']:.4f} ms)")
+            del every, plain_pairs
+        else:
+            kb = bound(nbytes, k3_ops(B, bo) * P, PEAK_F32)
+            ms = cuda_ms(lambda: gop.gain(pu_b, rp, inten), 10)
+            kern["b_out_ms"] = ms
+            line += (f"; {ms:.4f} ms per call, bound {kb['bound_ms']:.4f} ms"
+                     f" ({kb['bound_by']})")
+        lines.append(line)
+        del got, want
+    del pu, rp, inten
+    return lines, kern
 
 
 def optin_kernels_vs_plain(cfg, ctx, dev):
@@ -2768,6 +2820,311 @@ def bench_phase(name, smi, drift):
         f"cbet_solve_seconds {rec1['cbet_solve_seconds']:.6f}; "
         f"edep_total {d_tot:.3e} from the first run's (bar "
         f"{2 * drift:.2e})"]
+
+
+
+class _Capture:
+    """A deposit entry point (``fn(grid, *rows)``) that keeps device copies
+    of the rows of its first call and of the first call with fewer than
+    half as many rows (the first step after the trace's width has halved:
+    a compacted mid-trace chunk), then stops the trace (:class:`Done`).
+    ``got`` holds ``(rows, call index)``: the call index is the step."""
+
+    class Done(Exception):
+        pass
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.got = fn, 0, []
+
+    def __call__(self, grid, *rows):
+        import torch
+        n = rows[0].shape[0]
+        if not self.got or n < self.got[0][0][0].shape[0] // 2:
+            self.got.append((tuple(a.clone() if torch.is_tensor(a) else a
+                                   for a in rows), self.calls))
+        self.calls += 1
+        out = self.fn(grid, *rows)
+        if len(self.got) == 2:
+            raise self.Done
+        return out
+
+
+def config4_kernels(cfg, ctx, dev, rng):
+    """Phase 24, step 2: K1 (K5's contract: one step into the 202^3 grid),
+    K2 (one group's rows into its 15 coarse 102^3 grids) and K3 (60 beams x
+    10^6 coarse nodes) against their plain versions on the card, on inputs
+    the config-4 path gives them: each deposit on one step's rows of the
+    first chunk and of a compacted mid-trace chunk (:class:`_Capture` over
+    the trace's own chunk loop, ``raytracer.ChunkedTrace``, and over group
+    0's zero-gain CBET trace, ``cbet.make_cbet_trace_fn``), f32 and f64,
+    kernel and plain timed in turns (K2 also on its direct path); K3's pair
+    kernel against its plain version and bit for bit its all-pairs kernel.
+    Bars: f32 1e-6, f64 1e-12 rel-L2 (K3 1e-5, phase 8's).  Returns
+    (lines, per-kernel entries of the f32 first-chunk cases)."""
+    import torch
+    from cbet_raytracing_3d_tpu_torch.models import cbet
+    from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
+    from cbet_raytracing_3d_tpu_torch.ops import deposit as dep
+    from cbet_raytracing_3d_tpu_torch.scripts.config4 import GROUPS
+
+    lines, kern = [], {}
+
+    def run_until_done(fn):
+        try:
+            fn()
+        except _Capture.Done:
+            return True
+        return False
+
+    def as_dtype(rows, n_ints, dt):
+        return tuple(a.to(dt) if i >= n_ints and torch.is_tensor(a) else a
+                     for i, a in enumerate(rows))
+
+    # K1 on the trace's own chunk loop (the deposit per step of
+    # run_composed), stopped at the capture
+    cap = _Capture(dep.deposit)
+    chunks = rt.ChunkedTrace(cfg, cap, compact=True)
+    carry = chunks.start(rt.traced_state(ctx, dev))
+
+    def trace_all():
+        while chunks.advance(ctx.field4, carry):
+            pass
+    stopped = run_until_done(trace_all)
+    del carry, chunks
+    if not (stopped and len(cap.got) == 2):
+        raise RuntimeError(f"config 4: K1's rows not captured ({cap.calls} "
+                           "calls)")
+    rpt = ctx.layout.rays_per_tile
+    for case, (rows32, step) in zip(("first chunk", "mid-trace"), cap.got):
+        n = rows32[0].shape[0]
+        for dt in (torch.float32, torch.float64):
+            rows = as_dtype(rows32, 3, dt)
+            before = dep.LAUNCHES
+            got, of_k = dep.deposit(
+                torch.zeros(cfg.edep_shape, dtype=dt, device=dev), *rows)
+            want, of_p = dep.deposit_reference(
+                torch.zeros(cfg.edep_shape, dtype=dt, device=dev), *rows)
+            err, mx, fin = compare(got, want)
+            tot = abs(float(got.sum()) / float(want.sum()) - 1)
+            tol = 1e-6 if dt == torch.float32 else 1e-12
+            live = int((rows[6] != 0).sum())
+            if not (err < tol and fin and int(of_k) == int(of_p) == 0
+                    and dep.LAUNCHES == before + 1 and live > 0):
+                raise RuntimeError(
+                    f"config 4: K1 vs plain failed ({case}, {dt}): rel-L2 "
+                    f"{err}, overflow {int(of_k)}/{int(of_p)}")
+            grid = torch.zeros(cfg.edep_shape, dtype=dt, device=dev)
+            ms = in_turns({"kernel": lambda: dep.deposit(grid, *rows),
+                           "plain": lambda: dep.deposit_reference(
+                               grid, *rows)}, 5)
+            line = (f"K1 (K5's contract) {case}, step {step} ({n // rpt} "
+                    f"tiles of {rpt}), {str(dt)[6:]} {n} rows ({live} live) "
+                    f"into {tuple(cfg.edep_shape)}: rel-L2 {err:.3e} "
+                    f"total-rel {tot:.3e} max-abs {mx:.6e} (< {tol:g}); "
+                    f"kernel {ms['kernel']:.4f} ms plain {ms['plain']:.4f} ms "
+                    f"per launch (in turns)")
+            if dt == torch.float32:
+                # a float step through the tile box, beside the direct
+                # kernel (one thread per row) it took before
+                blocks = box_share(lambda t: dep._launch(grid, *rows,
+                                                         tally=t), dev)
+                ms_d = in_turns({
+                    "box": lambda: dep.deposit(grid, *rows),
+                    "direct": lambda: dep._launch(grid, *rows,
+                                                  box_nodes=0)}, 10)
+                kb = bound(deposit_bytes(rows[6]) + 8 * touched(want),
+                           DEPOSIT_OPS * live, PEAK_F32)
+                line += (f"; box {ms_d['box']:.4f} ms direct kernel "
+                         f"{ms_d['direct']:.4f} ms (in turns); blocks in the "
+                         f"box {blocks[1]} of {blocks[0]} (direct "
+                         f"{blocks[0] - blocks[1]}); bound "
+                         f"{kb['bound_ms']:.4f} ms ({kb['bound_by']})")
+                entry = {"max_abs_err": mx, "ms": ms["kernel"],
+                         "plain_ms": ms["plain"], **kb, "library_ms": None,
+                         "direct_ms": ms_d["direct"], "rows": n,
+                         "step": step, "box_blocks": blocks[1],
+                         "direct_blocks": blocks[0] - blocks[1]}
+                if case == "first chunk":
+                    kern["K1"] = entry
+                else:
+                    kern["K1"]["mid_trace"] = entry
+            else:
+                line += "; the direct kernel (a double step)"
+                entry = (kern["K1"] if case == "first chunk"
+                         else kern["K1"]["mid_trace"])
+                entry.update(f64_ms=ms["kernel"], f64_plain_ms=ms["plain"])
+            lines.append(line)
+            del rows, got, want, grid
+    del cap
+
+    # K2 on group 0's zero-gain CBET trace (the solve's iteration 0)
+    cfg_t = cfg.replace(cbet_segmented=True)
+    state0, bid, tpg = cbet.solver_state(cfg_t, ctx, dev)
+    nb_g = cfg.nbeams // GROUPS
+    rows_g = state0.n // GROUPS
+    capg = _Capture(dep.deposit_grouped)
+    ops = dataclasses.replace(cbet.kernel_ops(), grouped=capg)
+    trace = cbet.make_cbet_trace_fn(cfg_t, ctx, tiles_per_group=tpg,
+                                    ops=ops, n_beams=nb_g)
+    P = cfg.nx * cfg.ny * cfg.nz
+    gain0 = torch.zeros((nb_g, P), dtype=torch.float32, device=dev)
+    stopped = run_until_done(lambda: trace(
+        ctx.field4, gain0, bid[:rows_g], state0.map(lambda a: a[:rows_g])))
+    del gain0, trace, state0, bid
+    if not (stopped and len(capg.got) == 2):
+        raise RuntimeError(f"config 4: K2's rows not captured ({capg.calls} "
+                           "calls)")
+    hx, hy, hz = cfg.cbet_grid_shape
+    gshape = (nb_g, hx + 2, hy + 2, hz + 2)
+    for case, (rows32, step) in zip(("first chunk", "mid-trace"), capg.got):
+        n, rpg = rows32[0].shape[0], rows32[7]
+        for dt in (torch.float32, torch.float64):
+            rows = as_dtype(rows32, 3, dt)
+            before = dep.GROUPED_LAUNCHES
+            got, of_k = dep.deposit_grouped(
+                torch.zeros(gshape, dtype=dt, device=dev), *rows)
+            want, of_p = dep.deposit_grouped_reference(
+                torch.zeros(gshape, dtype=dt, device=dev), *rows)
+            err, mx, fin = compare(got, want)
+            tol = 1e-6 if dt == torch.float32 else 1e-12
+            if not (err < tol and fin and int(of_k) == int(of_p) == 0
+                    and dep.GROUPED_LAUNCHES == before + 1):
+                raise RuntimeError(
+                    f"config 4: K2 vs plain failed ({case}, {dt}): rel-L2 "
+                    f"{err}, overflow {int(of_k)}/{int(of_p)}")
+            grids = torch.zeros(gshape, dtype=dt, device=dev)
+            blocks = box_share(lambda t: dep._launch_grouped(
+                grids, *rows, tally=t), dev)
+            ms = in_turns({
+                "box": lambda: dep.deposit_grouped(grids, *rows),
+                "direct": lambda: dep._launch_grouped(grids, *rows,
+                                                      box_nodes=0)}, 10)
+            ms_p = cuda_ms(lambda: dep.deposit_grouped_reference(grids,
+                                                                 *rows), 3)
+            line = (f"K2 {case}, step {step} of group 0 ({rpg // rpt} tiles "
+                    f"a beam), {str(dt)[6:]} {n} rows into {gshape}: rel-L2 "
+                    f"{err:.3e} max-abs {mx:.6e} (< {tol:g}); box "
+                    f"{ms['box']:.4f} ms direct {ms['direct']:.4f} ms (in "
+                    f"turns) plain {ms_p:.4f} ms per launch; blocks in the "
+                    f"box {blocks[1]} of {blocks[0]} (direct "
+                    f"{blocks[0] - blocks[1]})")
+            if dt == torch.float32:
+                live = int((rows[6] != 0).sum())
+                kb = bound(deposit_bytes(rows[6]) + 8 * touched(want),
+                           DEPOSIT_OPS * live, PEAK_F32)
+                line += (f"; bound {kb['bound_ms']:.4f} ms "
+                         f"({kb['bound_by']})")
+                entry = {"max_abs_err": mx, "ms": ms["box"], "plain_ms": ms_p,
+                         **kb, "library_ms": None, "direct_ms": ms["direct"],
+                         "rows": n, "step": step, "box_blocks": blocks[1],
+                         "direct_blocks": blocks[0] - blocks[1]}
+                if case == "first chunk":
+                    kern["K2"] = entry
+                else:
+                    kern["K2"]["mid_trace"] = entry
+            lines.append(line)
+            del rows, got, want, grids
+    del capg
+
+    # K3 at the coarse grid's shape (B = 60, Ph = 100^3): the solver's own
+    # tables
+    rows3, kern["K3"] = k3_vs_plain(cfg, ctx, dev, rng)
+    lines += rows3
+    return lines, kern
+
+
+def config4_phase(dev, smi, zero_counts, read_counts):
+    """Phase 24: BASELINE config 4 end to end (``scripts/config4.py``'s
+    ``CONFIG4``: 200^3 nodes, 64,273,500 rays in 60,480 tiles of 900, nt =
+    800, 60 beams, f32 rays, f64 master, a deposit per step, the CBET
+    fields on the 100^3 coarse grid): (1) the on-card init; (2) the kernels
+    against their plain versions (:func:`config4_kernels`); (3) the composed
+    trace (``runner.run_composed``), f32, no checkpoint; (4) the converged
+    composed CBET solve (``cbet_solve_composed``), f32, 4 groups, on the
+    trace's scene.  (3) and (4) are held by ``hold_config4`` against the
+    JAX package's records and by the launches their path implies; every
+    peak against ``runner.estimate_device_bytes``.  Returns (lines, kernel
+    entries, {K1, K2, K3} launches of (3) and (4))."""
+    import torch
+    from cbet_raytracing_3d_tpu_torch import runner
+    from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
+    from cbet_raytracing_3d_tpu_torch.scripts import config4 as c4
+
+    t_phase = time.perf_counter()
+    cfg = c4.CONFIG4
+    lines = []
+
+    # 1. the on-card init
+    base = mem_mark()
+    t = time.perf_counter()
+    ctx = rt.prepare_device(cfg, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t
+    n, rpt = ctx.state0.n, ctx.layout.rays_per_tile
+    launched = int(ctx.state0.alive.sum())
+    if not (n == runner.traced_slots(cfg) and launched == c4.RAYS_LAUNCHED):
+        raise RuntimeError(f"config 4 init: {n} slots, {launched} rays "
+                           "launched")
+    lines.append(f"on-card init: {n} slots ({n // rpt} tiles of {rpt}), "
+                 f"{launched} rays launched of {cfg.total_rays}, "
+                 f"{t_init:.3f} s; " + peak_line(cfg, False, base))
+
+    # 2. the kernels against their plain versions
+    rows, kern = config4_kernels(cfg, ctx, dev,
+                                 np.random.default_rng(SEED + 24))
+    lines += rows
+    del ctx
+
+    # 3. the composed trace; 4. the converged solve on its scene
+    zero_counts()
+    tr, ctx4 = c4.trace_stage(cfg, dev)
+    n_t = read_counts()
+    zero_counts()
+    cb = c4.cbet_stage(cfg, ctx4, dev, c4.GROUPS)
+    n_c = read_counts()
+    del ctx4
+    rec = {**tr, **cb, "device": str(dev),
+           "window_steps": cfg.deposit_batch_steps if rt.batched(cfg) else 1}
+    held = c4.hold_config4(rec)
+    launch = c4.launch_checks(rec)
+    mem = {
+        "trace peak <= estimate_device_bytes":
+            tr["trace_peak_bytes"] <= tr["trace_estimate_bytes"],
+        "CBET peak <= estimate_device_bytes (CBET stage alone)":
+            cb["cbet_peak_bytes"] <= cb["cbet_estimate_bytes"],
+    }
+    lines.append(
+        f"composed trace: {tr['trace_seconds']:.3f} s (Init "
+        f"{tr['trace_init_seconds']:.3f} s), {tr['trace_steps_executed']} "
+        f"steps in {tr['trace_chunks']} chunks, widths "
+        f"{tr['trace_tile_widths']}; edep_total {tr['trace_edep_total']:.9e}"
+        f", energy balance {tr['trace_energy_balance']:.3e}; rays launched "
+        f"{tr['trace_rays_launched']} terminated "
+        f"{tr['trace_rays_terminated']}; launches {n_t}; peak "
+        f"{tr['trace_peak_bytes'] / 2**30:.3f} GiB, estimate_device_bytes "
+        f"{tr['trace_estimate_bytes'] / 2**30:.3f} GiB; card {smi}")
+    lines.append(
+        f"composed CBET, {cb['beam_groups']} groups: {cb['iterations']} "
+        f"iterations, converged {cb['converged']}, history "
+        f"{[round(h, 6) for h in cb['history']]}; edep_total "
+        f"{cb['edep_total']:.9e} energy_absorbed "
+        f"{cb['energy_absorbed']:.9e} intensity_total "
+        f"{cb['intensity_total']:.9e}, balance {cb['energy_balance']:.4e}; "
+        f"solve {cb['solve_wall_seconds_this_invocation']:.3f} s, iterations "
+        f"{cb['iter_seconds']} s; launches {n_c} over "
+        f"{sum(cb['trace_steps'])} group steps; peak "
+        f"{cb['cbet_peak_bytes'] / 2**30:.3f} GiB, estimate_device_bytes "
+        f"{cb['cbet_estimate_bytes'] / 2**30:.3f} GiB; card {smi}")
+    for h in held:
+        lines.append(f"held: {h['stage']} {h['quantity']}: {h['reading']} "
+                     f"against the JAX record {h['want']} (bar {h['bar']}): "
+                     f"{'ok' if h['ok'] else 'MISSED'}")
+    lines.append(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
+    bad = ([f"{h['stage']} {h['quantity']}" for h in held if not h["ok"]]
+           + [k for k, ok in {**launch, **mem}.items() if not ok])
+    if bad or not launch:
+        raise RuntimeError(f"config 4 failed: {bad}; " + " | ".join(lines))
+    return lines, kern, {"K1": n_t["K1"], "K2": n_c["K2"], "K3": n_c["K3"]}
 
 
 if __name__ == "__main__":

@@ -27,7 +27,9 @@ from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
 from cbet_raytracing_3d_tpu_torch.ops import deposit as dep
 from cbet_raytracing_3d_tpu_torch.ops import gain_deposit as gdep
 from cbet_raytracing_3d_tpu_torch.parallel.sharding import pad_rays
-from cbet_raytracing_3d_tpu_torch.runner import estimate_device_bytes, run
+from cbet_raytracing_3d_tpu_torch.runner import (CBET_MARGIN,
+                                                 estimate_device_bytes, run,
+                                                 traced_slots)
 
 torch.set_num_threads(1)
 
@@ -461,13 +463,20 @@ def test_cli_run_cbet_optins(flags, tmp_path):
 def test_memory_estimate_counts_the_optins():
     """Anderson adds three intensity-sized buffers; the tri window's
     streams are the kernel_cell window's; no padded gain table is counted;
-    the batched lookup counts its per-step rows twice."""
+    the batched lookup counts its per-step rows twice (eight rows, three
+    int32 and five floats, and their concatenation, against the window
+    advance's 13 streams of the kernel modes).  The CBET stage carries its
+    margin (``runner.CBET_MARGIN``) on every term and is rounded down to
+    whole bytes, so the differences hold to a byte."""
     base = Config()
     look = estimate_device_bytes(base, with_cbet=True)
     acc = estimate_device_bytes(base.replace(cbet_accel="anderson"), True)
-    assert acc - look == 3 * 60 * 10 ** 6 * 4
-    n = rt.build_tile_layout(base).n_slots
+    assert acc - look == pytest.approx(CBET_MARGIN * 3 * 60 * 10 ** 6 * 4,
+                                       abs=1)
+    n = traced_slots(base)
     cell = estimate_device_bytes(base.replace(cbet_gain_mode="kernel_cell"),
                                  True)
     tri = estimate_device_bytes(base.replace(cbet_gain_mode="kernel"), True)
-    assert cell == tri and look - cell == 3 * 5 * n * 4
+    assert cell == tri
+    assert look - cell == pytest.approx(
+        CBET_MARGIN * 5 * n * (2 * (3 * 4 + 5 * 4) - 13 * 4), abs=1)

@@ -111,7 +111,7 @@ K1_WINDOW_CASES = {
                                        (torch.float64, 1e-12)])
 def test_kernel_window_paths(cuda, case, dtype, tol):
     """K1 on a step-major window against the plain version, against one
-    direct launch per step and against the direct kernel over all its rows
+    launch per step and against the direct kernel over all its rows
     (capacity 0); the default sends a float32 window through the tile box
     and a float64 one down the window kernel's direct path; an explicit
     capacity boxes either."""
@@ -307,6 +307,78 @@ def test_grouped_kernel_box_paths(cuda, case, dtype, tol):
         assert in_box == blocks
     else:
         assert 0 <= in_box < blocks
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-12)])
+def test_kernel_one_step_into_the_config4_grid(cuda, dtype, tol):
+    """K1 on one step into the 202^3 grid of BASELINE config 4 (the
+    contract of the TPU's K5, which the JAX trace takes whenever nz + 2 >
+    128): launch tiles of 900 rays, boundary exit rows, dead rows.  A float
+    step goes through the tile box (blocks straddle the tiles), a double
+    step takes the direct kernel; both against the direct kernel too."""
+    grid = (200, 200, 200)
+    rows = deposit_rows(np.random.default_rng(11), grid, 900 * 400,
+                        rays_per_tile=900)
+    args = to_device(*rows, dtype, cuda)
+    shape = tuple(g + 2 for g in grid)
+    before = dep.LAUNCHES
+    got, of = dep.deposit(torch.zeros(shape, dtype=dtype, device=cuda), *args)
+    want, of_p = dep.deposit_reference(
+        torch.zeros(shape, dtype=dtype, device=cuda), *args)
+    assert dep.LAUNCHES == before + 1
+    assert int(of) == int(of_p) == 0
+    assert rel_l2(got.cpu(), want.cpu()) < tol
+    assert want.min() < 0
+    tally = torch.zeros(2, dtype=torch.int32, device=cuda)
+    default = torch.zeros(shape, dtype=dtype, device=cuda)
+    dep._launch(default, *args, tally=tally)
+    direct = torch.zeros(shape, dtype=dtype, device=cuda)
+    dep._launch(direct, *args, box_nodes=0)
+    assert rel_l2(default.cpu(), direct.cpu()) < tol
+    blocks, in_box = (int(x) for x in tally.cpu())
+    if dtype == torch.float32:
+        assert blocks == -(-len(rows[2]) // 256) and 0 < in_box <= blocks
+    else:
+        assert blocks == in_box == 0          # the direct kernel: no tally
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-12)])
+def test_grouped_kernel_into_coarse_grids_with_straddling_blocks(cuda, dtype,
+                                                                 tol):
+    """K2 as config 4's CBET trace calls it: one step of 900-ray tiles, 5
+    tiles a beam (4,500 rays: not a multiple of the 256-ray block, so
+    blocks straddle tiles and beams), cells on a coarse grid of 52^3 nodes;
+    the kernel against its plain version, the tile box against the direct
+    path.  Neighbouring tiles deposit near each other (a 12-cell region in
+    the grid's middle, as a beam's tiles do), so every block fits the box
+    but those that span two beams, which take the direct path."""
+    groups, rpg, grid = 3, 4500, (50, 50, 50)
+    n = groups * rpg
+    cell, frac, inc = deposit_rows(np.random.default_rng(12), (12, 12, 12),
+                                   n, rays_per_tile=900, boundary=0.0)
+    args = to_device([c + 19 for c in cell], frac, inc, dtype, cuda)
+    shape = (groups,) + tuple(g + 2 for g in grid)
+    before = dep.GROUPED_LAUNCHES
+    got, of = dep.deposit_grouped(torch.zeros(shape, dtype=dtype,
+                                              device=cuda), *args, rpg, n)
+    want, of_p = dep.deposit_grouped_reference(
+        torch.zeros(shape, dtype=dtype, device=cuda), *args, rpg, n)
+    assert dep.GROUPED_LAUNCHES == before + 1
+    assert int(of) == int(of_p) == 0
+    assert rel_l2(got.cpu(), want.cpu()) < tol
+    tally = torch.zeros(2, dtype=torch.int32, device=cuda)
+    boxed = torch.zeros(shape, dtype=dtype, device=cuda)
+    dep._launch_grouped(boxed, *args, rpg, n, tally=tally)
+    direct = torch.zeros(shape, dtype=dtype, device=cuda)
+    dep._launch_grouped(direct, *args, rpg, n, box_nodes=0)
+    assert rel_l2(boxed.cpu(), direct.cpu()) < tol
+    blocks, in_box = (int(x) for x in tally.cpu())
+    straddling = sum((b * 256) // rpg != (min(n, b * 256 + 256) - 1) // rpg
+                     for b in range(-(-n // 256)))
+    assert blocks == -(-n // 256) and straddling == groups - 1
+    assert in_box == blocks - straddling
 
 
 @pytest.mark.parametrize("bo", [3, 1])
