@@ -118,12 +118,14 @@ __device__ __forceinline__ void deposit_row(T* __restrict__ edep, int cx,
 // 2^-51 of the block's largest corner value (batch 5), and each node once
 // more when it is flushed to the grid's type.
 //
-// A kernel first reads its rows' corners once to find the block's box (a
-// superset of the rows that deposit is exact), then runs its ordinary loop,
-// which deposits each row's corners into the box (box_deposit) or, on the
-// direct path, into the grid (deposit_corners).  Keeping the rows in
-// registers between the two passes instead took 100-128 registers a thread
-// and was slower than the direct kernels.
+// A window kernel first reads its rows' corners once to find the block's
+// box (a superset of the rows that deposit is exact), then runs its
+// ordinary loop, which deposits each row's corners into the box
+// (box_deposit) or, on the direct path, into the grid (deposit_corners).
+// Keeping a window's rows (5 steps, 35 values a thread) in registers
+// between the two passes instead took 100-128 registers a thread and was
+// slower than the direct kernels.  One step's 7 values fit: the one-step
+// kernel (deposit.cu) reads its rows once, with a box of its own.
 //
 // A block whose box exceeds the capacity, or that the caller marks as not
 // boxable (a K2 block whose rays fall into two groups' grids), takes the

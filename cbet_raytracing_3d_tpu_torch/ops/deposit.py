@@ -3,7 +3,7 @@ versions.
 
 Counterpart of ``cbet_raytracing_3d_tpu/ops/pallas_deposit.py::
 make_tile_deposit`` (and of ``make_tile_deposit_hbm``, whose contract the
-same kernel covers at any grid size), with the plain version transcribing the
+same wrapper covers at any grid size), with the plain version transcribing the
 JAX package's XLA scatter backend (``models/raytracer.py::
 _scatter_corner_parts``).  The kernels are in ``csrc/deposit.cu``; its header
 says what bounds them on the card.
@@ -24,14 +24,20 @@ the grouped form, the per-beam CBET intensity fields: ``grids`` is
 ``(i % n_rays) // rays_per_group`` (rows are one step of ``n_rays`` rays, or
 a step-major window of several).
 
-K1 and K2 deposit a step-major window (or one step) ray-major, each block
-of 256 rays through a shared-memory tile box (``csrc/deposit_row.cuh``); K1
-in float64 takes the direct kernel on one step (one thread per row, global
-atomics) and the window kernel's direct path on a window.  ``BOX_DEFAULT``
-asks for the kernel's own box capacity, 0 for the direct kernel.  The
-wrappers always take the default; ``_launch`` and ``_launch_grouped`` also
-take 0, to time the two designs side by side, and a ``tally`` of the box's
-use.
+K1 and K2 deposit a step-major window ray-major, each block of 256 rays
+through a shared-memory tile box (``csrc/deposit_row.cuh``).  K1 on one
+float32 step (K5's contract: BASELINE config 4 deposits every step into its
+202^3 grid) takes the one-step kernel, which reads each row once into an
+exact fixed-point box with copies of each node for dense blocks
+(``csrc/deposit.cu``); K1 in float64 takes the direct kernel on one step
+(one thread per row, global atomics) and the window kernel's direct path on
+a window.  ``BOX_DEFAULT`` asks for the kernel's own box capacity, 0 for the
+direct kernel.  The wrappers always take the default; ``_launch`` and
+``_launch_grouped`` also take 0 or another capacity of the window kernel's
+box, to time the designs side by side, and a ``tally`` of the box's use;
+``_launch(one_step=False)`` sends a float32 step through the window
+kernel's box as it went before the one-step kernel
+(``scripts/step_sweep.py`` times both on config 4's steps).
 
 Each wrapper launches its kernel for CUDA tensors (after checking device,
 dtype, shape and contiguity; it raises on anything else) and takes the plain
@@ -210,11 +216,14 @@ def deposit(edep, cx, cy, cz, fx, fy, fz, inc, n_rays=None):
 
 
 def _launch(edep, cx, cy, cz, fx, fy, fz, inc, n_rays=None,
-            box_nodes=BOX_DEFAULT, tally=None):
-    """Check the CUDA arguments and launch K1: a step or a window through
-    the tile box of capacity ``box_nodes`` (0: the direct kernel over all
-    its rows; the default in float64: the direct kernel on one step, the
-    window kernel's direct path on a window); returns the overflow count.
+            box_nodes=BOX_DEFAULT, tally=None, one_step=True):
+    """Check the CUDA arguments and launch K1.  At the default capacity a
+    float32 step takes the one-step kernel (``one_step=False``: the window
+    kernel at one step, the tile box a float32 step took before) and a
+    float32 window the window kernel's box; in float64 a step takes the
+    direct kernel and a window the window kernel's direct path.
+    ``box_nodes`` 0 runs the direct kernel over all the rows, > 0 the
+    window kernel with a box of that capacity.  Returns the overflow count.
     ``tally`` as in :func:`_launch_grouped`."""
     ints, flts = (cx, cy, cz), (fx, fy, fz, inc)
     _check_cuda_args(edep, ints, flts)
@@ -228,7 +237,7 @@ def _launch(edep, cx, cy, cz, fx, fy, fz, inc, n_rays=None,
         stream = torch.cuda.current_stream(edep.device).cuda_stream
         rc = fn(edep.data_ptr(), cx.data_ptr(), cy.data_ptr(), cz.data_ptr(),
                 fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), inc.data_ptr(),
-                cx.shape[0], n_rays, *edep.shape, box_nodes,
+                cx.shape[0], n_rays, *edep.shape, box_nodes, int(one_step),
                 overflow.data_ptr(),
                 None if tally is None else _tally_ptr(tally, edep.device),
                 stream)

@@ -75,8 +75,9 @@ def profile(fn, walls: list, top: int = 6) -> dict:
     # the host's work: the aten operators it ran (nested ones included)
     ops = sum(e.count for e in prof.key_averages()
               if e.key.startswith("aten::"))
-    # the package's own kernels (csrc/), whatever their rank
-    hand = [r for r in rows if r[0].startswith("void (anonymous namespace)")
+    # the package's own kernels (csrc/, in an anonymous namespace; a
+    # template's name starts with its return type), whatever their rank
+    hand = [r for r in rows if "(anonymous namespace)::" in r[0]
             and "at::native" not in r[0]]
     return {"wall": wall, "walls": walls, "busy": busy,
             "idle": 1.0 - busy / wall, "top": rows[:top], "hand": hand,

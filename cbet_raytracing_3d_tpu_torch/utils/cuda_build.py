@@ -149,8 +149,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     d = ctypes.c_double
     signatures = {
         # (edep, cx, cy, cz, fx, fy, fz, inc, n, n_rays, nxp, nyp, nzp,
-        #  box_nodes, overflow, tally, stream)
-        "cbet_deposit": [p] * 8 + [ll, ll, i, i, i, i, p, p, p],
+        #  box_nodes, one_step, overflow, tally, stream)
+        "cbet_deposit": [p] * 8 + [ll, ll, i, i, i, i, i, p, p, p],
         # (grids, cx, cy, cz, fx, fy, fz, inc, n, n_rays, rays_per_group,
         #  nxp, nyp, nzp, box_nodes, overflow, tally, stream)
         "cbet_deposit_grouped": [p] * 8 + [ll, ll, ll, i, i, i, i, p, p, p],

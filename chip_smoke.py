@@ -17,12 +17,16 @@ Phases (one line each; any failure exits non-zero before the last line):
    rows) in f32 and f64, and on an nz = 130 grid (K5's case), timed in f32
    beside the bound.  Then the main path's window (5 steps x 1,121,280 rows,
    150 steps into the OMEGA trace): through the tile box against the plain
-   version and against five one-step launches, f32 and f64 (a f64
+   version and against five one-step launches (the per-step path's: the
+   one-step kernel in f32, the direct kernel in f64), f32 and f64 (a f64
    window takes the window kernel's direct path by default; the box's
    largest per-node relative error in f64 is printed), and a chunk's five
    windows into one f32 grid against their float64 sum; the box, the five
    launches and the direct kernel timed in turns, beside the bound and the
-   blocks that took the box.
+   blocks that took the box; the window's first step (the per-step path,
+   ``deposit_batch_steps=1``) on the one-step kernel, on the window kernel
+   at one step and on the direct kernel, each against the plain version,
+   timed in turns.
 4. config-1 golden: float64 trace on the card through the kernel against
    ``tests/golden/config1_oracle.npz``; a launch per 5-step window.
 5. OMEGA main path: ``runner.run(Config())`` on the card (60 beams, 19,600
@@ -148,7 +152,10 @@ Phases (one line each; any failure exits non-zero before the last line):
    chunk and of a compacted mid-trace chunk, f32 and f64, against their
    plain versions (f32 <= 1e-6, f64 <= 1e-12 rel-L2), timed in turns with
    them and with their direct kernels, with the blocks that took the tile
-   box (a f32 step goes through it); K3 at 60 beams x 10^6 coarse nodes
+   box; a f32 step of K1 takes the one-step kernel, timed in turns with the
+   window kernel at one step (its box before), the direct kernel and the
+   plain version, each of the three kernels held to 1e-6 of the plain
+   version and its energy balance printed; K3 at 60 beams x 10^6 coarse nodes
    against its plain version and its all-pairs kernel; then the composed
    trace (``runner.run_composed``) and the converged composed CBET solve
    (``cbet_solve_composed``, 4 groups) in f32, held by
@@ -297,14 +304,15 @@ def k2_window_args(w, gamma, rays_per_group):
     return (*flat, contrib, rays_per_group, w["cx"].shape[1])
 
 
-def in_turns(fns: dict, reps: int) -> dict:
-    """Milliseconds per call of each of two ``fns`` (name -> callable),
-    CUDA events over ``reps`` calls, timed in turns a, b, b, a; returns the
-    mean of each one's two readings."""
-    a, b = fns
-    got = {a: [], b: []}
-    for name in (a, b, b, a):
-        got[name].append(cuda_ms(fns[name], reps))
+def in_turns(fns: dict, reps: int, queued: bool = False) -> dict:
+    """Milliseconds per call of each of ``fns`` (name -> callable), CUDA
+    events over ``reps`` calls (``queued`` as in :func:`cuda_ms`), timed in
+    turns forward then backward (a, b, b, a for two); returns the mean of
+    each one's two readings."""
+    names = list(fns)
+    got = {k: [] for k in names}
+    for name in names + names[::-1]:
+        got[name].append(cuda_ms(fns[name], reps, queued))
     return {k: sum(v) / len(v) for k, v in got.items()}
 
 
@@ -1039,7 +1047,11 @@ def deposit_window_vs_plain(cfg, ctx, dev):
     (``scripts.box_sweep.trace_window``), against its plain version and
     against five one-step launches, f32 and f64; timed in turns.
     Returns (report lines, {max_abs_err, ms, plain_ms, bound_ms, bound_by,
-    library_ms, per_step_ms, direct_ms, box_share} of the f32 case)."""
+    library_ms, per_step_ms, direct_ms, box_share, step_*} of the f32
+    case).  ``per_step_ms`` times the five launches of the per-step path,
+    whatever kernel it takes: the one-step kernel since it exists (before:
+    the window kernel's box at one step, and the direct kernel before
+    that); ``step_*`` times the three on the window's first step."""
     import torch
     from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
     from cbet_raytracing_3d_tpu_torch.ops import deposit as dep
@@ -1125,10 +1137,33 @@ def deposit_window_vs_plain(cfg, ctx, dev):
                                  grid, *flat, n, box_nodes=0)}, 20)
             ms_p = cuda_ms(lambda: dep.deposit_reference(grid, *flat, n), 5)
             ms_box = (ms["box"] + ms_d["box"]) / 2
+            # the per-step path's step (deposit_batch_steps=1): the window's
+            # first step on the one-step kernel, the window kernel at one
+            # step and the direct kernel
+            one = steps[0]
+            want1, _ = dep.deposit_reference(zeros(), *one)
+            step_paths = {
+                "one-step": lambda g: dep.deposit(g, *one),
+                "window box": lambda g: dep._launch(g, *one, one_step=False),
+                "direct": lambda g: dep._launch(g, *one, box_nodes=0)}
+            err1 = {}
+            for k, fn in step_paths.items():
+                g = zeros()
+                fn(g)
+                err1[k] = compare(g, want1)[0]
+            if not all(e < tol for e in err1.values()):
+                raise RuntimeError(f"K1 one step vs plain: {err1}")
+            # a step takes less time on the card than its launch on the
+            # host: queued behind a device-side sleep
+            ms1 = in_turns({k: (lambda f=fn: f(grid))
+                            for k, fn in step_paths.items()}, 40, queued=True)
             kern = {"max_abs_err": max_abs, "ms": ms_box, "plain_ms": ms_p,
                     **kb, "library_ms": None, "per_step_ms": ms["steps"],
                     "direct_ms": ms_d["direct"],
-                    "box_share": blocks[1] / blocks[0]}
+                    "box_share": blocks[1] / blocks[0],
+                    "step_ms": ms1["one-step"],
+                    "step_previous_ms": ms1["window box"],
+                    "step_direct_ms": ms1["direct"]}
             line += (f"; five windows into one f32 grid vs their float64 sum:"
                      f" box {loss_b:.3e}, one-step launches {loss_s:.3e}; box"
                      f" {ms['box']:.4f} / {ms_d['box']:.4f} ms, five one-step"
@@ -1136,8 +1171,13 @@ def deposit_window_vs_plain(cfg, ctx, dev):
                      f"the window {ms_d['direct']:.4f} ms (in turns), plain "
                      f"{ms_p:.4f} ms per window; bound {kb['bound_ms']:.4f} "
                      f"ms ({kb['bound_by']}); blocks in the box {blocks[1]} "
-                     f"of {blocks[0]}")
-            del exact, grid_b, grid_s, grid
+                     f"of {blocks[0]}; its first step ({n} rows, the per-"
+                     f"step path): one-step kernel {ms1['one-step']:.4f} ms,"
+                     f" the window kernel's box at one step "
+                     f"{ms1['window box']:.4f} ms, direct kernel "
+                     f"{ms1['direct']:.4f} ms (in turns), rel-L2 vs plain "
+                     + ", ".join(f"{k} {e:.3e}" for k, e in err1.items()))
+            del exact, grid_b, grid_s, grid, want1
         else:
             direct = zeros()
             dep._launch(direct, *flat, n, box_nodes=0)
@@ -2823,56 +2863,34 @@ def bench_phase(name, smi, drift):
 
 
 
-class _Capture:
-    """A deposit entry point (``fn(grid, *rows)``) that keeps device copies
-    of the rows of its first call and of the first call with fewer than
-    half as many rows (the first step after the trace's width has halved:
-    a compacted mid-trace chunk), then stops the trace (:class:`Done`).
-    ``got`` holds ``(rows, call index)``: the call index is the step."""
-
-    class Done(Exception):
-        pass
-
-    def __init__(self, fn):
-        self.fn, self.calls, self.got = fn, 0, []
-
-    def __call__(self, grid, *rows):
-        import torch
-        n = rows[0].shape[0]
-        if not self.got or n < self.got[0][0][0].shape[0] // 2:
-            self.got.append((tuple(a.clone() if torch.is_tensor(a) else a
-                                   for a in rows), self.calls))
-        self.calls += 1
-        out = self.fn(grid, *rows)
-        if len(self.got) == 2:
-            raise self.Done
-        return out
-
-
 def config4_kernels(cfg, ctx, dev, rng):
     """Phase 24, step 2: K1 (K5's contract: one step into the 202^3 grid),
     K2 (one group's rows into its 15 coarse 102^3 grids) and K3 (60 beams x
     10^6 coarse nodes) against their plain versions on the card, on inputs
     the config-4 path gives them: each deposit on one step's rows of the
-    first chunk and of a compacted mid-trace chunk (:class:`_Capture` over
-    the trace's own chunk loop, ``raytracer.ChunkedTrace``, and over group
-    0's zero-gain CBET trace, ``cbet.make_cbet_trace_fn``), f32 and f64,
-    kernel and plain timed in turns (K2 also on its direct path); K3's pair
-    kernel against its plain version and bit for bit its all-pairs kernel.
-    Bars: f32 1e-6, f64 1e-12 rel-L2 (K3 1e-5, phase 8's).  Returns
-    (lines, per-kernel entries of the f32 first-chunk cases)."""
+    first chunk and of a compacted mid-trace chunk (``scripts.step_sweep.
+    Capture`` over the trace's own chunk loop, ``raytracer.ChunkedTrace``,
+    and over group 0's zero-gain CBET trace, ``cbet.make_cbet_trace_fn``),
+    f32 and f64, kernel and plain timed in turns (K1 in f32: the one-step
+    kernel, the window kernel at one step, the direct kernel and the plain
+    version; K2 also on its direct path); K3's pair kernel against its
+    plain version and bit for bit its all-pairs kernel.  Bars: f32 1e-6,
+    f64 1e-12 rel-L2 (K3 1e-5, phase 8's).  Returns (lines, per-kernel
+    entries of the f32 first-chunk cases)."""
     import torch
     from cbet_raytracing_3d_tpu_torch.models import cbet
     from cbet_raytracing_3d_tpu_torch.models import raytracer as rt
     from cbet_raytracing_3d_tpu_torch.ops import deposit as dep
     from cbet_raytracing_3d_tpu_torch.scripts.config4 import GROUPS
+    from cbet_raytracing_3d_tpu_torch.scripts.step_sweep import (
+        Capture, capture_config4, corner_total)
 
     lines, kern = [], {}
 
     def run_until_done(fn):
         try:
             fn()
-        except _Capture.Done:
+        except Capture.Done:
             return True
         return False
 
@@ -2882,20 +2900,9 @@ def config4_kernels(cfg, ctx, dev, rng):
 
     # K1 on the trace's own chunk loop (the deposit per step of
     # run_composed), stopped at the capture
-    cap = _Capture(dep.deposit)
-    chunks = rt.ChunkedTrace(cfg, cap, compact=True)
-    carry = chunks.start(rt.traced_state(ctx, dev))
-
-    def trace_all():
-        while chunks.advance(ctx.field4, carry):
-            pass
-    stopped = run_until_done(trace_all)
-    del carry, chunks
-    if not (stopped and len(cap.got) == 2):
-        raise RuntimeError(f"config 4: K1's rows not captured ({cap.calls} "
-                           "calls)")
+    steps = capture_config4(cfg, ctx, dev)
     rpt = ctx.layout.rays_per_tile
-    for case, (rows32, step) in zip(("first chunk", "mid-trace"), cap.got):
+    for case, (rows32, step) in zip(("first chunk", "mid-trace"), steps):
         n = rows32[0].shape[0]
         for dt in (torch.float32, torch.float64):
             rows = as_dtype(rows32, 3, dt)
@@ -2914,55 +2921,87 @@ def config4_kernels(cfg, ctx, dev, rng):
                     f"config 4: K1 vs plain failed ({case}, {dt}): rel-L2 "
                     f"{err}, overflow {int(of_k)}/{int(of_p)}")
             grid = torch.zeros(cfg.edep_shape, dtype=dt, device=dev)
-            ms = in_turns({"kernel": lambda: dep.deposit(grid, *rows),
-                           "plain": lambda: dep.deposit_reference(
-                               grid, *rows)}, 5)
             line = (f"K1 (K5's contract) {case}, step {step} ({n // rpt} "
                     f"tiles of {rpt}), {str(dt)[6:]} {n} rows ({live} live) "
                     f"into {tuple(cfg.edep_shape)}: rel-L2 {err:.3e} "
-                    f"total-rel {tot:.3e} max-abs {mx:.6e} (< {tol:g}); "
-                    f"kernel {ms['kernel']:.4f} ms plain {ms['plain']:.4f} ms "
-                    f"per launch (in turns)")
+                    f"total-rel {tot:.3e} max-abs {mx:.6e} (< {tol:g})")
             if dt == torch.float32:
-                # a float step through the tile box, beside the direct
-                # kernel (one thread per row) it took before
+                # the one-step kernel beside the window kernel at one step
+                # (the tile box a float step took before it) and the direct
+                # kernel (one thread per row), each from zeros against the
+                # plain version and the rows' own energy
+                launches = {
+                    "one-step": lambda g, t=None: dep.deposit(g, *rows),
+                    "window box": lambda g, t=None: dep._launch(
+                        g, *rows, tally=t, one_step=False),
+                    "direct": lambda g, t=None: dep._launch(
+                        g, *rows, box_nodes=0)}
+                total = corner_total(rows, cfg.edep_shape)
+                held = {}
+                for k, fn in launches.items():
+                    g = torch.zeros(cfg.edep_shape, dtype=dt, device=dev)
+                    fn(g)
+                    held[k] = (compare(g, want)[0],
+                               float(g.double().sum()) / total - 1)
+                    del g
+                if not all(e < tol for e, _ in held.values()):
+                    raise RuntimeError(f"config 4: K1's paths vs plain "
+                                       f"({case}): {held}")
                 blocks = box_share(lambda t: dep._launch(grid, *rows,
                                                          tally=t), dev)
+                before_w = box_share(lambda t: launches["window box"](
+                    grid, t), dev)
                 ms_d = in_turns({
-                    "box": lambda: dep.deposit(grid, *rows),
-                    "direct": lambda: dep._launch(grid, *rows,
-                                                  box_nodes=0)}, 10)
+                    **{k: (lambda f=fn: f(grid))
+                       for k, fn in launches.items()},
+                    "plain": lambda: dep.deposit_reference(grid, *rows)}, 10)
                 kb = bound(deposit_bytes(rows[6]) + 8 * touched(want),
                            DEPOSIT_OPS * live, PEAK_F32)
-                line += (f"; box {ms_d['box']:.4f} ms direct kernel "
-                         f"{ms_d['direct']:.4f} ms (in turns); blocks in the "
-                         f"box {blocks[1]} of {blocks[0]} (direct "
-                         f"{blocks[0] - blocks[1]}); bound "
-                         f"{kb['bound_ms']:.4f} ms ({kb['bound_by']})")
-                entry = {"max_abs_err": mx, "ms": ms["kernel"],
-                         "plain_ms": ms["plain"], **kb, "library_ms": None,
+                line += (f"; one-step kernel {ms_d['one-step']:.4f} ms, the "
+                         f"window kernel's box at one step "
+                         f"{ms_d['window box']:.4f} ms, direct kernel "
+                         f"{ms_d['direct']:.4f} ms, plain "
+                         f"{ms_d['plain']:.4f} ms per launch (in turns); "
+                         "rel-L2 vs "
+                         "plain and energy balance: " + ", ".join(
+                             f"{k} {e:.3e} / {b:.3e}"
+                             for k, (e, b) in held.items())
+                         + f"; blocks in the box {blocks[1]} of {blocks[0]} "
+                         f"(window box {before_w[1]} of {before_w[0]}); "
+                         f"bound {kb['bound_ms']:.4f} ms ({kb['bound_by']})")
+                entry = {"max_abs_err": mx, "ms": ms_d["one-step"],
+                         "plain_ms": ms_d["plain"], **kb, "library_ms": None,
+                         "previous_ms": ms_d["window box"],
                          "direct_ms": ms_d["direct"], "rows": n,
                          "step": step, "box_blocks": blocks[1],
-                         "direct_blocks": blocks[0] - blocks[1]}
+                         "direct_blocks": blocks[0] - blocks[1],
+                         "energy_balance": held["one-step"][1],
+                         "previous_energy_balance": held["window box"][1],
+                         "direct_energy_balance": held["direct"][1]}
                 if case == "first chunk":
                     kern["K1"] = entry
                 else:
                     kern["K1"]["mid_trace"] = entry
             else:
-                line += "; the direct kernel (a double step)"
+                ms = in_turns({"kernel": lambda: dep.deposit(grid, *rows),
+                               "plain": lambda: dep.deposit_reference(
+                                   grid, *rows)}, 5)
+                line += (f"; the direct kernel (a double step) "
+                         f"{ms['kernel']:.4f} ms plain {ms['plain']:.4f} ms "
+                         "per launch (in turns)")
                 entry = (kern["K1"] if case == "first chunk"
                          else kern["K1"]["mid_trace"])
                 entry.update(f64_ms=ms["kernel"], f64_plain_ms=ms["plain"])
             lines.append(line)
             del rows, got, want, grid
-    del cap
+    del steps
 
     # K2 on group 0's zero-gain CBET trace (the solve's iteration 0)
     cfg_t = cfg.replace(cbet_segmented=True)
     state0, bid, tpg = cbet.solver_state(cfg_t, ctx, dev)
     nb_g = cfg.nbeams // GROUPS
     rows_g = state0.n // GROUPS
-    capg = _Capture(dep.deposit_grouped)
+    capg = Capture(dep.deposit_grouped)
     ops = dataclasses.replace(cbet.kernel_ops(), grouped=capg)
     trace = cbet.make_cbet_trace_fn(cfg_t, ctx, tiles_per_group=tpg,
                                     ops=ops, n_beams=nb_g)

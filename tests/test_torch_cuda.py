@@ -309,38 +309,173 @@ def test_grouped_kernel_box_paths(cuda, case, dtype, tol):
         assert 0 <= in_box < blocks
 
 
+def _tile_step(seed, n_tiles, span=3, dead=0.3, identical=False,
+               rays_per_tile=900):
+    """One step of launch tiles of ``rays_per_tile`` rays (config 4's 900
+    rays: 30 x 30 of one beam) for the 202^3 grid: tile t's cells in a
+    ``span``^3 region, the regions ``span + 2`` cells apart (no two tiles
+    share a node) in rows of 10 along x, 10 rows a layer, consecutive tiles
+    side by side (the rows and layers run back and forth), many rays a node;
+    the tiles of the first column lie on the x = 0 face with a third of
+    their rows exiting there (frac_x in (-0.95, -0.55): a negative weight).
+    ``identical``: every row of a tile is its first row.  Float64 NumPy, as
+    ``chip_smoke.deposit_rows``."""
+    rng = np.random.default_rng(seed)
+    n = n_tiles * rays_per_tile
+    tile = np.arange(n) // rays_per_tile
+    row, layer = tile // 10, tile // 100
+    ix = np.where(row % 2 == 1, 9 - tile % 10, tile % 10)
+    iy = np.where(layer % 2 == 1, 9 - row % 10, row % 10)
+    cell = [(span + 2) * i + rng.integers(0, span, size=n)
+            for i in (ix, iy, layer)]
+    frac = [rng.uniform(-0.4999, 0.4999, size=n) for _ in range(3)]
+    inc = rng.uniform(0.5, 2.0, size=n) * 1e9
+    face = (ix == 0) & (rng.uniform(size=n) < 1 / 3)
+    cell[0][face] = 0
+    frac[0][face] = rng.uniform(-0.95, -0.55, size=int(face.sum()))
+    if identical:
+        first = tile * rays_per_tile
+        cell = [c[first] for c in cell]
+        frac = [f[first] for f in frac]
+        inc = inc[first]
+    inc[rng.uniform(size=n) < dead] = 0.0
+    assert max(c.max() for c in cell) + 2 < 202
+    return [c.astype(np.int32) for c in cell], frac, inc
+
+
+ONE_STEP_CASES = {
+    # case: (dead rays, rows to break, blocks in the box)
+    "dense tiles": (0, None, "all"),
+    "a run of dead rays": (2048, None, "all"),
+    "a NaN row": (0, "nan", "all but one"),
+    "rows off the grid": (0, "off", "all"),
+    "a block beyond the capacity": (0, "scatter", "all but one"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ONE_STEP_CASES))
+def test_kernel_one_step_paths(cuda, case):
+    """K1 on one float step of 900-ray tiles (the one-step kernel, config
+    4's; the tiles straddle its blocks of 256 rays) against the plain
+    version, the window kernel at one step (the tile box a float step took
+    before) and the direct kernel: f32 within 1e-6 rel-L2 of the plain
+    version; a NaN row carries its NaN into the same nodes (its block takes
+    the direct path); rows off the grid are counted, not written; a block
+    whose rows scatter over the grid takes the direct path."""
+    dead, broken, expect = ONE_STEP_CASES[case]
+    cell, frac, inc = _tile_step(13, 400)
+    n = len(inc)
+    inc[8192:8192 + dead] = 0.0
+    if broken == "nan":
+        frac[1][7777] = np.nan
+        inc[7777] = 1e9
+    elif broken == "off":
+        cell[2][100:110] = 250
+        inc[100:110] = 1e9
+    elif broken == "scatter":
+        rng = np.random.default_rng(14)
+        rows = slice(256 * 300, 256 * 300 + 64)
+        for c in cell:
+            c[rows] = rng.integers(1, 199, size=64)
+        inc[rows] = 1e9
+    args = to_device(cell, frac, inc, torch.float32, cuda)
+    shape = (202, 202, 202)
+
+    def zeros():
+        return torch.zeros(shape, dtype=torch.float32, device=cuda)
+
+    def close(got, want):
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        got, want = got[~nan].double(), want[~nan].double()
+        return float((got - want).norm() / want.norm())
+    before = dep.LAUNCHES
+    got, of = dep.deposit(zeros(), *args)
+    assert dep.LAUNCHES == before + 1
+    want, of_p = dep.deposit_reference(zeros(), *args)
+    step, window, direct = zeros(), zeros(), zeros()
+    tally = torch.zeros(2, dtype=torch.int32, device=cuda)
+    of_s = dep._launch(step, *args, tally=tally)
+    of_w = dep._launch(window, *args, one_step=False)
+    of_d = dep._launch(direct, *args, box_nodes=0)
+    assert dep.LAUNCHES == before + 1            # only the wrapper counts
+    assert int(of) == int(of_p) == int(of_s) == int(of_w) == int(of_d) == (
+        10 if broken == "off" else 0)
+    assert want.nan_to_num().min() < 0               # the x = 0 face exits
+    for grid_k in (got, step, window, direct):
+        assert close(grid_k, want) < 1e-6
+    assert close(got, window) < 1e-6
+    blocks, in_box = (int(x) for x in tally.cpu())
+    assert blocks == -(-n // 256) - dead // 256
+    assert in_box == blocks - (0 if expect == "all" else 1)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
                                        (torch.float64, 1e-12)])
 def test_kernel_one_step_into_the_config4_grid(cuda, dtype, tol):
     """K1 on one step into the 202^3 grid of BASELINE config 4 (the
     contract of the TPU's K5, which the JAX trace takes whenever nz + 2 >
-    128): launch tiles of 900 rays, boundary exit rows, dead rows.  A float
-    step goes through the tile box (blocks straddle the tiles), a double
-    step takes the direct kernel; both against the direct kernel too."""
+    128): launch tiles of 900 rays, boundary exit rows, dead rows; the dense
+    case of config 4 (many rays a node, :func:`_tile_step`) and tiles spread
+    over the grid (``chip_smoke.deposit_rows``).  A float step takes the
+    one-step kernel, against the window kernel at one step (the tile box it
+    took before) and the direct kernel; a double step takes the direct
+    kernel."""
     grid = (200, 200, 200)
-    rows = deposit_rows(np.random.default_rng(11), grid, 900 * 400,
-                        rays_per_tile=900)
-    args = to_device(*rows, dtype, cuda)
     shape = tuple(g + 2 for g in grid)
-    before = dep.LAUNCHES
-    got, of = dep.deposit(torch.zeros(shape, dtype=dtype, device=cuda), *args)
-    want, of_p = dep.deposit_reference(
-        torch.zeros(shape, dtype=dtype, device=cuda), *args)
-    assert dep.LAUNCHES == before + 1
-    assert int(of) == int(of_p) == 0
-    assert rel_l2(got.cpu(), want.cpu()) < tol
-    assert want.min() < 0
-    tally = torch.zeros(2, dtype=torch.int32, device=cuda)
-    default = torch.zeros(shape, dtype=dtype, device=cuda)
-    dep._launch(default, *args, tally=tally)
-    direct = torch.zeros(shape, dtype=dtype, device=cuda)
-    dep._launch(direct, *args, box_nodes=0)
-    assert rel_l2(default.cpu(), direct.cpu()) < tol
-    blocks, in_box = (int(x) for x in tally.cpu())
-    if dtype == torch.float32:
-        assert blocks == -(-len(rows[2]) // 256) and 0 < in_box <= blocks
-    else:
-        assert blocks == in_box == 0          # the direct kernel: no tally
+    spread = deposit_rows(np.random.default_rng(11), grid, 900 * 400,
+                          rays_per_tile=900)
+    for rows in (_tile_step(12, 400), spread):
+        args = to_device(*rows, dtype, cuda)
+        before = dep.LAUNCHES
+        got, of = dep.deposit(torch.zeros(shape, dtype=dtype, device=cuda),
+                              *args)
+        want, of_p = dep.deposit_reference(
+            torch.zeros(shape, dtype=dtype, device=cuda), *args)
+        assert dep.LAUNCHES == before + 1
+        assert int(of) == int(of_p) == 0
+        assert rel_l2(got.cpu(), want.cpu()) < tol
+        assert want.min() < 0
+        tally = torch.zeros(2, dtype=torch.int32, device=cuda)
+        default = torch.zeros(shape, dtype=dtype, device=cuda)
+        dep._launch(default, *args, tally=tally)
+        window = torch.zeros(shape, dtype=dtype, device=cuda)
+        dep._launch(window, *args, one_step=False)
+        direct = torch.zeros(shape, dtype=dtype, device=cuda)
+        dep._launch(direct, *args, box_nodes=0)
+        for other in (window, direct):
+            assert rel_l2(default.cpu(), other.cpu()) < tol
+        blocks, in_box = (int(x) for x in tally.cpu())
+        if dtype == torch.float32:
+            assert blocks == -(-len(rows[2]) // 256) and 0 < in_box <= blocks
+        else:
+            assert blocks == in_box == 0      # the direct kernel: no tally
+
+
+def test_kernel_one_step_keeps_the_energy(cuda):
+    """The energy balance of a float step into a grid from zeros: the
+    grid's sum equals the sum of the rows' float32 corner values within
+    1e-8 (relative) through the one-step kernel and through the window
+    kernel at one step, where the direct kernel (eight f32 atomics a row)
+    loses more: every row of a tile is the same row, so a node takes 900
+    equal adds, whose f32 sum drifts the same way at every add whatever
+    their order (BASELINE config 4's trace lost 1.6e-6 of its energy that
+    way before a float step took the box)."""
+    cell, frac, inc = _tile_step(15, 300, dead=0.0, identical=True)
+    args = to_device(cell, frac, inc, torch.float32, cuda)
+    shape = (202, 202, 202)
+    _, val, ok = dep._corner_parts(*args, shape)
+    total = float(val[ok].double().sum())
+
+    def balance(launch):
+        grid = torch.zeros(shape, dtype=torch.float32, device=cuda)
+        launch(grid)
+        return float(grid.double().sum()) / total - 1
+    step = balance(lambda g: dep.deposit(g, *args))
+    window = balance(lambda g: dep._launch(g, *args, one_step=False))
+    direct = balance(lambda g: dep._launch(g, *args, box_nodes=0))
+    assert abs(step) < 1e-8 and abs(window) < 1e-8
+    assert abs(direct) > 1e-8
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
